@@ -1,17 +1,19 @@
 """Config: the flags the port reads (its own copy of the part of
-box2mask_tpu/config.py that the inference slice uses; same names, defaults and
-derived fields).
+box2mask_tpu/config.py that the inference and training slices use; same
+names, defaults, derived fields and checks).
 
 Reads the same ``configs/*.txt`` format (``key = value`` lines, bare flags,
 ``[a, b, c]`` lists, ``#`` comments) without depending on configargparse.
 Precedence: CLI > config file > default. Flags of the JAX package that the
-port does not read yet (training, losses, augmentation, other datasets) are
+port does not read yet (other datasets, multi-device, evaluation modes) are
 accepted, from a config file or the command line, and ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import sys
 
 HEADS = ('mlp_offsets', 'mlp_bounds', 'mlp_bb_scores', 'mlp_semantics',
@@ -44,17 +46,84 @@ def config_parser():
     p = argparse.ArgumentParser('box2mask-torch')
     add = p.add_argument
     add('--config', type=str, default=None, help='config file path')
+    add('--exp_name', type=str, default=None)
+    add('--dataset_name', type=str, default='scannet')
+    add('--num_workers', type=int, default=16)
     add('--use_normals_input', default=False, action='store_true')
+    # synthetic dataset scale (dataset-free runs, tests, chip_smoke.py)
+    add('--synthetic_instances', type=int, default=8)
+    add('--synthetic_points_per_instance', type=int, default=600)
+    add('--synthetic_floor_points', type=int, default=3000)
+    add('--synthetic_wall_points', type=int, default=2200)
+    # box supervision
+    add('--bb_supervision', default=False, action='store_true')
+    add('--point_association', default=False, action='store_true')
+    add('--smallest_bb_heuristic', default=False, action='store_true')
+    add('--majority_vote', default=False, action='store_true')
+    add('--dropout_boxes', type=float, default=None)
+    add('--noisy_boxes', type=float, default=None)
     add('--voxel_size', type=float, default=0.02)
+    add('--align', default=False, action='store_true')
+    add('--dont_align', default=False, action='store_true')
+    # debugging
+    add('--overfit_to_single_scene', type=int, default=None)
+    add('--overfit_to_single_scene_str', type=str, default=None)
+    add('--dataset_size', type=int, default=None)
+    add('--fixed_seed', type=int, default=None)
     add('--eval_ths', type=float, nargs=4, default=None,
         help='cluster_th, score_th, mask_bin_th, mask_nms_th')
+    # training
+    add('--eval_first', dest='skip_first_eval', action='store_false')
+    p.set_defaults(skip_first_eval=True)
+    add('--eval_every', type=int, default=12)
+    add('--val_every', type=int, default=12)
+    add('--ckpt_every', type=int, default=4)
+    add('--loose_model_loading', default=False, action='store_true')
+    add('--batch_size', type=int, default=4)
+    add('--remat', default=False, action='store_true')
+    add('--no_auto_remat', default=False, action='store_true')
+    add('--remat_levels', type=int, default=7)
     add('--bf16_acts', default=False, action='store_true')
+    add('--num_epochs', type=int, default=1500)
+    add('--lr', type=float, default=1e-6)
+    add('--optimizer', type=str, default='Adam')
+    add('--loss_on_all_instances', default=False, action='store_true')
+    add('--num_eval_batches', type=int, default=5)
+    add('--use_lr_scheduler', default=False, action='store_true')
+    add('--lr_scheduler_start_epoch', type=int, default=None)
+    add('--lr_scheduler_end_epoch', type=int, default=None)
+    # augmentations (the ones datasets/augmentation.augment_scene reads)
+    add('--augmentation', default=False, action='store_true')
+    add('--position_jittering', type=float, default=[0.00, 0.01], nargs=2)
+    add('--scaling_aug', type=float, default=[0.0, 0.9, 1.1], nargs=3)
+    add('--color_jittering_aug', default=[0.0, 0.1], type=float, nargs=2)
+    add('--rotation_aug', type=float, default=[0.0, math.pi / 100, 1],
+        nargs='+')
+    add('--rotation_90_aug', default=False, action='store_true')
+    add('--mix_3d_color_aug', default=False, action='store_true')
+    add('--apply_hue_aug', default=False, action='store_true')
+    add('--flipping_aug', default=0.0, type=float)
+    add('--chromatic_auto_contrast', default=0.0, type=float)
+    add('--chromatic_translation', type=float, default=[0.0, 0.1], nargs=2)
+    add('--random_brightness', type=float, default=[0.0, 0.1], nargs=2)
+    # detection net
     add('--do_segment_pooling', default=False, action='store_true')
     add('--network_heads', default=None, type=str, nargs='+', choices=HEADS)
     add('--mlp_bounds_relu', default=False, action='store_true')
     add('--max_pool_segments_detection_net', default=False,
         action='store_true')
     add('--layers', type=int, default=2)
+    # losses
+    add('--use_bb_iou_loss', default=False, action='store_true')
+    add('--loss_weight_semantics', type=float, default=None)
+    add('--loss_weight_bb_offsets', type=float, default=1.0)
+    add('--loss_weight_bb_bounds', type=float, default=None)
+    add('--loss_weight_bb_scores', type=float, default=None)
+    add('--loss_weight_center_scores', type=float, default=None)
+    add('--loss_weight_bb_iou', type=float, default=None)
+    add('--loss_weight_per_vox_semantics', type=float, default=1)
+    add('--mlp_bb_scores_start_epoch', default=0, type=int)
+    add('--mlp_center_scores_start_epoch', default=0, type=int)
     add('--min_bb_size', default=0.04, type=float)
     add('--vox_bucket', type=int, default=4096,
         help='Padding granularity (voxels) per pyramid level.')
@@ -63,7 +132,17 @@ def config_parser():
     add('--compute_dtype', type=str, default='bfloat16',
         choices=['bfloat16', 'float32'],
         help='dtype of conv/linear operands; accumulation is float32.')
+    add('--prefetch_batches', type=int, default=2)
     return p
+
+
+def needs_remat(total_padded_rows, bf16_acts=False):
+    """True when a training step over this many level-0 voxel rows is past
+    the JAX package's one-chip memory rule (box2mask_tpu/config.py:289):
+    8 x 131072 rows need block remat with f32 activations; with bf16
+    activations the threshold doubles. The port keeps the rule as it is, so
+    a preset trains under the same remat setting on either package."""
+    return total_padded_rows > (8 if bf16_acts else 4) * 131072
 
 
 def _apply_config_file(parser, argv):
@@ -79,7 +158,8 @@ def _apply_config_file(parser, argv):
         a = option_map.get(key)
         if a is None:
             continue
-        if isinstance(a, argparse._StoreTrueAction):
+        if isinstance(a, (argparse._StoreTrueAction,
+                          argparse._StoreFalseAction)):
             if val is None or str(val).lower() in ('true', '1', 'yes'):
                 extra.append('--' + key)
         elif val is None:
@@ -92,16 +172,61 @@ def _apply_config_file(parser, argv):
 
 
 def get_config(args=None):
-    """Parse args + config file and derive the fields the port reads: the
-    head-name constants and `in_channels`."""
+    """Parse args + config file and derive the fields the port reads, with
+    the JAX package's checks (box2mask_tpu/config.py:308-401): head-name
+    constants, `in_channels`, `full_model`, the experiment paths, the
+    head / loss-weight checks and the auto-remat rule."""
     parser = config_parser()
     argv = list(args) if args is not None else sys.argv[1:]
     cfg, _ = parser.parse_known_args(_apply_config_file(parser, argv))
+    if cfg.dont_align:
+        cfg.align = False
+    cfg.loss_on_fg_instances = not cfg.loss_on_all_instances
+    if len(cfg.rotation_aug) == 1:
+        cfg.rotation_aug = [cfg.rotation_aug[0], math.pi / 100, 1]
+    if cfg.dropout_boxes and not 0 <= cfg.dropout_boxes <= 1:
+        raise ValueError(f'--dropout_boxes {cfg.dropout_boxes} not in [0, 1]')
     for head in HEADS:
         setattr(cfg, head, head)
+    cfg.network_heads_options = list(HEADS)
     if cfg.network_heads is None:
         cfg.network_heads = []
     if len(set(cfg.network_heads)) != len(cfg.network_heads):
         raise ValueError(f'repeated head in {cfg.network_heads}')
+    heads = cfg.network_heads
+    cfg.full_model = ('mlp_bounds' in heads and 'mlp_offsets' in heads
+                      and ('mlp_semantics' in heads
+                           or 'mlp_per_vox_semantics' in heads)
+                      and 'mlp_bb_scores' in heads)
     cfg.in_channels = 3 + 3 * cfg.use_normals_input
+
+    if cfg.exp_name == 'cfg_name':
+        name = os.path.basename(cfg.config)
+        if not name.endswith('.txt'):
+            raise ValueError(f'exp_name cfg_name needs a .txt config, got '
+                             f'{cfg.config}')
+        cfg.exp_name = name[:-4]
+    root = os.environ.get('BOX2MASK_EXP_ROOT', os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'experiments'))
+    cfg.exp_path = os.path.join(root, str(cfg.exp_name)) + '/'
+    cfg.checkpoint_path = cfg.exp_path + 'checkpoints/'
+
+    if 'mlp_center_scores' in heads and 'mlp_offsets' not in heads:
+        raise ValueError('mlp_center_scores head requires mlp_offsets')
+    if 'mlp_bb_scores' in heads and cfg.loss_weight_bb_scores is None:
+        raise ValueError('mlp_bb_scores head requires --loss_weight_bb_scores')
+    if 'mlp_semantics' in heads and not cfg.loss_weight_semantics:
+        raise ValueError('mlp_semantics head requires --loss_weight_semantics')
+    if cfg.use_bb_iou_loss:
+        if not ('mlp_offsets' in heads and 'mlp_bounds' in heads):
+            raise ValueError('bb IoU loss requires offsets+bounds heads')
+        if cfg.loss_weight_bb_iou is None:
+            raise ValueError('bb IoU loss requires --loss_weight_bb_iou')
+    # the shipped presets run as shipped: block remat when the step is past
+    # the memory rule (parameters are the same either way)
+    if (not cfg.remat and not cfg.no_auto_remat
+            and needs_remat(cfg.batch_size * cfg.vox_bucket, cfg.bf16_acts)):
+        cfg.remat = True
+        cfg.remat_auto = True
     return cfg

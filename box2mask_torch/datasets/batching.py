@@ -1,14 +1,19 @@
 """Batch assembly: per-scene dicts -> one padded, static-shape batch (host, NumPy).
 
-The port's copy of box2mask_tpu/datasets/batching.py:161-294
-(_build_batch_small), key-pyramid layout only:
+The port's copy of box2mask_tpu/datasets/batching.py:27
+(map_semantics_to_idx) and :161-294 (_build_batch_small), key-pyramid layout
+only:
 
   * `keys{l}_b` (B, pad_l) int32: per-scene sorted packed keys of level l,
     SENT_KEY-padded (sparse/keys.py host_level_keys),
   * voxel-axis arrays in the interleaved `B*Vs` layout (scene i rows at
     [i*Vs, i*Vs + n_i)), Vs = pad_0,
   * segment-axis arrays (`pooling_ids` maps every voxel to its globally
-    renumbered oversegment, padding to the trash segment S_pad).
+    renumbered oversegment, padding to the trash segment S_pad),
+  * in train and val batches of supervised scenes, the labels the losses
+    read: gt_bb_offsets, gt_bb_bounds, fg_instances, gt_semantics and
+    gt_semantics_idx in the segment layout (and the per-voxel semantics
+    where the scenes carry them).
 
 The key-matching conv searches the sorted key rows itself, so the batch
 carries no window plans (the JAX package's kc*_base / kc*_cnt) and no
@@ -22,7 +27,17 @@ from __future__ import annotations
 
 import numpy as np
 
+from box2mask_torch.datasets import tables
 from box2mask_torch.sparse.keys import NUM_LEVELS, SENT_KEY, host_level_keys
+
+
+def map_semantics_to_idx(sem_ids, id2idx):
+    """Dataset id -> dense class index; invalid/ignore -> -100
+    (reference SEMANTIC_ID2IDX tables, scannet.py:116-118)."""
+    sem_ids = np.asarray(sem_ids)
+    valid = (sem_ids >= 0) & (sem_ids < len(id2idx))
+    safe = np.clip(sem_ids, 0, len(id2idx) - 1)
+    return np.where(valid, id2idx[safe], tables.IGNORE).astype(np.int32)
 
 
 def round_up(x, m):
@@ -48,9 +63,10 @@ def level_pads(keys_per_scene, vox_bucket):
     return tuple(pads)
 
 
-def build_batch(rets, cfg):
-    """rets: list of per-scene dicts from voxelize_scene. Inference batches
-    only: the training labels come with the training slice."""
+def build_batch(rets, cfg, sem_id2idx=None, mode='train'):
+    """rets: list of per-scene dicts from voxelize_scene (+ supervision).
+    Labels are added unless mode == 'test' or the scenes carry none; they
+    need the dataset's `sem_id2idx` table."""
     B = len(rets)
     for r in rets:
         c = r['vox_coords']
@@ -103,12 +119,19 @@ def build_batch(rets, cfg):
                             for i in range(B)]), S_pad, fill=-1)
         loc = np.concatenate([r['input_location'] for r in rets], axis=0)
         dev['input_location'] = _pad_to(loc.astype(np.float32), S_pad)
+
+        def seg_layout(key, fill):
+            return _pad_to(np.concatenate([np.asarray(r[key]) for r in rets],
+                                          axis=0), S_pad, fill=fill)
     else:
         dev['pooling_ids'] = np.arange(B * Vs, dtype=np.int32)
         dev['seg_valid'] = dev['valid0']
         dev['num_segments'] = dev['num0']
         dev['batch_ids'] = dev['batch0']
         dev['input_location'] = interleave('input_location', dtype=np.float32)
+
+        def seg_layout(key, fill):
+            return interleave(key, fill=fill)
 
     host = {
         'scene': [r['scene'] for r in rets],
@@ -123,4 +146,24 @@ def build_batch(rets, cfg):
         'num_voxels': ns,
         'interleaved_vs': Vs,
     }
+    if mode == 'test' or 'gt_bb_offsets' not in rets[0]:
+        return dev, host
+    if sem_id2idx is None:
+        raise ValueError('a labelled batch needs the sem_id2idx table')
+    dev['gt_bb_offsets'] = seg_layout('gt_bb_offsets', 0.0).astype(np.float32)
+    dev['gt_bb_bounds'] = seg_layout('gt_bb_bounds', 0.0).astype(np.float32)
+    dev['fg_instances'] = seg_layout('fg_instances', False).astype(bool)
+    gt_sem = seg_layout('gt_semantics', 0).astype(np.int32)
+    dev['gt_semantics'] = gt_sem
+    dev['gt_semantics_idx'] = np.where(
+        dev['seg_valid'] if cfg.do_segment_pooling else dev['valid0'],
+        map_semantics_to_idx(gt_sem, sem_id2idx),
+        tables.IGNORE).astype(np.int32)
+    if 'gt_per_vox_semantics' in rets[0]:
+        pv = interleave('gt_per_vox_semantics', dtype=np.int64)
+        dev['gt_per_vox_semantics'] = pv.astype(np.int32)
+        dev['gt_per_vox_semantics_idx'] = np.where(
+            dev['valid0'], map_semantics_to_idx(pv, sem_id2idx),
+            tables.IGNORE).astype(np.int32)
+    host['instance_ids'] = [r.get('instance_ids') for r in rets]
     return dev, host

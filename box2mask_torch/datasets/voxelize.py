@@ -3,7 +3,8 @@
 The port's copy of the NumPy/cKDTree branch of
 box2mask_tpu/datasets/voxelize.py (the ctypes native branch is not copied):
 unique voxels in np.unique(axis=0) order, each voxel carrying its nearest
-point's features, and per-segment mean world positions.
+point's features, and per-segment mean world positions; and segment_mode
+(:90), the per-segment majority vote of the association.
 
   vox2point: (P,) point -> voxel row (np.unique inverse; named for parity
              with the reference although it is indexed by point).
@@ -63,3 +64,18 @@ def voxelize_scene(scene, cfg):
         ret['vox_segments'] = scene.get(
             'segments', np.zeros(len(positions), np.int32))[point2vox]
     return ret
+
+
+def segment_mode(values, seg2x, num_segments, minlength=None):
+    """Per-segment mode (majority vote) of integer `values`, vectorized.
+
+    Used for the majority-vote association variants (models/dataloader.py:263-271)
+    and per-segment semantic voting. Ties resolve to the smallest value (same as
+    scipy.stats.mode)."""
+    values = np.asarray(values)
+    vmin = values.min() if len(values) else 0
+    shifted = values - vmin
+    R = int(shifted.max()) + 1 if len(shifted) else 1
+    combo = seg2x.astype(np.int64) * R + shifted
+    counts = np.bincount(combo, minlength=num_segments * R).reshape(num_segments, R)
+    return counts.argmax(axis=1) + vmin

@@ -60,7 +60,10 @@ class Linear1x1(nn.Module):
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over valid rows only, torch-style momentum; eval uses the
-    running statistics."""
+    running statistics. In training the running statistics move once per
+    forward, unless `update_stats` is off: a block rematerialized in the
+    backward (nn/unet.py) turns it off while it recomputes, as flax's
+    nn.remat discards the mutations of its recomputation."""
 
     def __init__(self, features, momentum=0.1, epsilon=1e-5,
                  act_dtype=torch.float32):
@@ -72,17 +75,19 @@ class MaskedBatchNorm(nn.Module):
         self.momentum = momentum
         self.epsilon = epsilon
         self.act_dtype = act_dtype
+        self.update_stats = True
 
     def forward(self, x, valid, n_valid):
         if self.training:
             mean, var, n = ops.masked_moments(x, valid, n_valid)
+        else:
+            mean, var = self.mean, self.var
+        if self.training and self.update_stats:
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
                 self.mean.mul_(1 - m).add_(m * mean)
                 self.var.mul_(1 - m).add_(m * unbiased)
-        else:
-            mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.epsilon)
         return ((x - mean) * (inv * self.scale) + self.bias).to(self.act_dtype)
 

@@ -11,13 +11,20 @@ parameter names).
   * head MLPs (Linear-ReLU-BN x2 + Linear) per configured head.
 
 The forward consumes the batch dict of datasets/batching.py after
-engine/state.ensure_maps (per-level keys, valid masks and counts).
+engine/state.ensure_maps (per-level keys, valid masks and counts). In
+training mode BN normalizes with batch moments and moves its running
+statistics; with `remat`, the BasicBlocks of levels <= `remat_max_level`
+are rematerialized in the backward (torch.utils.checkpoint, the JAX
+package's nn.remat at unet.py:134-146), and their BN statistics move once.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from box2mask_torch.nn.modules import (BasicBlock, Linear1x1, MaskedBatchNorm,
                                        SparseConv, SparseConvTranspose)
@@ -55,6 +62,20 @@ class HeadMLP(nn.Module):
         return self.Linear1x1_2(h)
 
 
+@contextlib.contextmanager
+def _frozen_stats(module):
+    """Recomputation context of a rematerialized block: its BN layers
+    normalize as in the first pass but leave the running statistics alone."""
+    bns = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
 class SelectionNet(nn.Module):
 
     def __init__(self, num_classes, in_channels,
@@ -62,7 +83,8 @@ class SelectionNet(nn.Module):
                         'mlp_semantics'),
                  layers=2, do_segment_pooling=True, max_pool_segments=False,
                  mlp_bounds_relu=False, stem_kernel=5,
-                 compute_dtype=torch.bfloat16, act_dtype=torch.float32):
+                 compute_dtype=torch.bfloat16, act_dtype=torch.float32,
+                 remat=False, remat_max_level=7):
         super().__init__()
         if layers < 1:
             raise ValueError(f'layers must be >= 1, got {layers}')
@@ -73,6 +95,8 @@ class SelectionNet(nn.Module):
         self.max_pool_segments = max_pool_segments
         self.mlp_bounds_relu = mlp_bounds_relu
         self.stem_kernel = stem_kernel
+        self.remat = remat
+        self.remat_max_level = remat_max_level
 
         def blocks(stage, cin, planes):
             for i in range(layers):
@@ -108,8 +132,18 @@ class SelectionNet(nn.Module):
         def block_stage(x, level, stage):
             op = ops.conv_operand(batch, level, '3')
             v, n = batch[f'valid{level}'], batch[f'num{level}']
+            remat = (self.remat and level <= self.remat_max_level
+                     and torch.is_grad_enabled())
             for i in range(self.layers):
-                x = getattr(self, f'{stage}_block{i}')(x, op, v, n)
+                block = getattr(self, f'{stage}_block{i}')
+                if remat:
+                    x = checkpoint(
+                        block, x, op, v, n, use_reentrant=False,
+                        preserve_rng_state=False,
+                        context_fn=lambda b=block: (contextlib.nullcontext(),
+                                                    _frozen_stats(b)))
+                else:
+                    x = block(x, op, v, n)
             return x
 
         x = self.stem_conv(batch['vox_features'],

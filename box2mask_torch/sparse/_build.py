@@ -30,6 +30,8 @@ SIGNATURES = {
     'key_conv': {
         'b2m_key_conv': [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
         'b2m_key_conv_stem': [_P, _P, _P, _P] + [_I] * 4 + [_P],
+        'b2m_key_conv_dw': [_P] * 7 + [_I] * 11 + [_P],
+        'b2m_key_conv_stem_dw': [_P] * 6 + [_I] * 5 + [_P],
     },
 }
 

@@ -8,15 +8,32 @@ within scene b = v // pad_out, searching only that scene's sorted key row
 keys_in_b[b]. A missing neighbour adds 0; an output row with a SENT key
 gives 0. Four launch modes cover every conv of SelectionNet:
 
-  mode   call                                       replaces (box2mask_tpu)
-  same   key_conv(kernel_size=3, guard=True)        sparse/key_conv.py:116 _kernel
-  down   key_conv(stride_child=True)                  (:277 key_conv, :348
-  up     key_conv(stride_parent=True)                  pallas_call)
-  stem   key_conv_stem (5^3, cin <= 8, f32 out)     :542 _stem_kernel (:666)
+  mode     call                                     replaces (box2mask_tpu)
+  same     key_conv(kernel_size=3, guard=True)      sparse/key_conv.py:116 _kernel
+  down     key_conv(stride_child=True)                (:277 key_conv, :348
+  up       key_conv(stride_parent=True)                pallas_call)
+  stem     key_conv_stem (5^3, cin <= 8, f32 out)   :542 _stem_kernel (:666)
+  dw       key_conv_dw (the three modes above)      :814 _dw_kernel (:934, :985)
+  stem_dw  key_conv_stem_dw                         :557 _stem_dw_kernel (:698)
+
+The weight gradients compute
+
+    dw[k] = sum_v bf16(x[match(key_out[v] + sign * pack_delta(off_k, scale))])^T
+                  @ bf16(g[v])              (f32 accumulation, f32 out)
+
+and the four autograd Functions (`key_conv_train`, `key_conv_down_train`,
+`key_conv_up_train`, `key_conv_stem_train`) compose them exactly as the JAX
+custom VJPs do (`_kct_bwd` :1065, `_kcdp_bwd` :1150, `_kcu_bwd` :1201,
+`_kcs_bwd` :731): dx is the forward conv of the cotangent (mirrored weights
+for the same-level conv, the other stride-2 mode with transposed weights for
+down and up, zeros for the stem, whose input is data), dw comes from the dw
+kernel on x saved as bf16 (SAVED_X_DTYPE), dx is cast to x's dtype and dw to
+w's.
 
 What bounds them on the H100, and what the design does about it, is in the
-header of csrc/key_conv.cu. The kernel searches the key rows itself, so the
-TPU's host window plans (kc*_base / kc*_cnt) do not exist in the port.
+header of csrc/key_conv.cu. The kernels search the key rows themselves (the
+dw kernels through a match table built on the card), so the TPU's host
+window plans (kc*_base / kc*_cnt) do not exist in the port.
 
 Rounding follows the JAX package: x and w round to bf16 on the f32 path too;
 the output dtype follows x (bf16 under --bf16_acts), except the stem, whose
@@ -34,9 +51,14 @@ import torch
 from box2mask_torch.sparse.keys import (AXIS_BITS, AXIS_MAX, SENT_KEY,
                                         offsets_3d, pack_delta)
 
-MODES = ('same', 'down', 'up', 'stem')
+MODES = ('same', 'down', 'up', 'stem', 'dw', 'stem_dw')
 LAUNCHES = dict.fromkeys(MODES, 0)
 PLAIN_CALLS = dict.fromkeys(MODES, 0)
+# dtype the autograd Functions keep x in for the backward: the dw kernels
+# round x to bf16 anyway, so the held activations halve at no cost (the JAX
+# custom VJPs do the same); float32 keeps it unrounded, for comparisons
+# without any bf16 rounding
+SAVED_X_DTYPE = torch.bfloat16
 
 
 def reset_counts():
@@ -50,6 +72,31 @@ def _mode(stride_child, stride_parent):
 
 
 # ------------------------------------------------------------- plain twins
+def _matches(keys_in_b, keys_out, kernel_size, stride_child, stride_parent,
+             scale, guard):
+    """Per offset k: (hit, src) over the output rows, hit (B*pad_out,) bool
+    and src the matched input row (meaningful where hit)."""
+    B, pad_in = keys_in_b.shape
+    kin = keys_in_b.to(torch.int64).contiguous()
+    ko = keys_out.reshape(B, -1).to(torch.int64)
+    offs = offsets_3d(kernel_size, stride_child=stride_child or stride_parent)
+    sign = -1 if stride_parent else 1
+    valid = ko < SENT_KEY
+    fields = (ko >> 2 * AXIS_BITS, (ko >> AXIS_BITS) & (AXIS_MAX - 1),
+              ko & (AXIS_MAX - 1))
+    base = (torch.arange(B, device=ko.device) * pad_in)[:, None]
+    for off in offs:
+        q = ko + sign * pack_delta(off, scale)
+        ok = valid & (q >= 0)
+        if guard:
+            for f, d in zip(fields, off):
+                ok = ok & (f + int(d) * scale >= 0) & (f + int(d) * scale
+                                                      < AXIS_MAX)
+        pos = torch.searchsorted(kin, q).clamp_(max=pad_in - 1)
+        hit = ok & (kin.gather(1, pos) == q)
+        yield hit.reshape(-1), (pos + base).reshape(-1)
+
+
 def key_conv_plain(x, keys_in_b, keys_out, w, *, kernel_size=3,
                    stride_child=False, stride_parent=False, scale=1,
                    guard=True, out_dtype=None, operand_dtype=torch.bfloat16):
@@ -62,31 +109,34 @@ def key_conv_plain(x, keys_in_b, keys_out, w, *, kernel_size=3,
                conv, the FINE keys for the stride_parent transpose conv)
     w:         (K, Cin, Cout)
     """
-    B, pad_in = keys_in_b.shape
-    kin = keys_in_b.to(torch.int64).contiguous()
-    ko = keys_out.reshape(B, -1).to(torch.int64)
-    offs = offsets_3d(kernel_size, stride_child=stride_child or stride_parent)
-    sign = -1 if stride_parent else 1
-    valid = ko < SENT_KEY
-    fields = (ko >> 2 * AXIS_BITS, (ko >> AXIS_BITS) & (AXIS_MAX - 1),
-              ko & (AXIS_MAX - 1))
-    base = (torch.arange(B, device=x.device) * pad_in)[:, None]
     xb = x.to(operand_dtype).float()
     wb = w.to(operand_dtype).float()
-    out = torch.zeros(ko.numel(), w.shape[2], dtype=torch.float32,
+    out = torch.zeros(keys_out.numel(), w.shape[2], dtype=torch.float32,
                       device=x.device)
-    for k, off in enumerate(offs):
-        q = ko + sign * pack_delta(off, scale)
-        ok = valid & (q >= 0)
-        if guard:
-            for f, d in zip(fields, off):
-                ok = ok & (f + int(d) * scale >= 0) & (f + int(d) * scale
-                                                      < AXIS_MAX)
-        pos = torch.searchsorted(kin, q).clamp_(max=pad_in - 1)
-        hit = (ok & (kin.gather(1, pos) == q)).reshape(-1, 1)
-        src = (pos + base).reshape(-1)
-        out = out + torch.where(hit, xb[src] @ wb[k], 0.0)
+    for k, (hit, src) in enumerate(_matches(
+            keys_in_b, keys_out, kernel_size, stride_child, stride_parent,
+            scale, guard)):
+        rows = hit.nonzero().squeeze(1)       # each row once per offset
+        out.index_add_(0, rows, xb[src[rows]] @ wb[k])
     return out.to(out_dtype or x.dtype)
+
+
+def key_conv_dw_plain(x, g, keys_in_b, keys_out, *, kernel_size=3,
+                      stride_child=False, stride_parent=False, scale=1,
+                      guard=True, operand_dtype=torch.bfloat16):
+    """dw[k] = x[matched rows]^T @ g over the output rows that matched at
+    offset k; x and g rounded to `operand_dtype`, f32 sums, f32 out
+    (K, Cin, Cout) (float64 operands: f64 sums and out, a reference for
+    the f32 ones). Arguments as key_conv_plain, g (B*pad_out, Cout)."""
+    acc = torch.float64 if operand_dtype == torch.float64 else torch.float32
+    xb = x.to(operand_dtype).to(acc)
+    gb = g.to(operand_dtype).to(acc)
+    dws = []
+    for hit, src in _matches(keys_in_b, keys_out, kernel_size, stride_child,
+                             stride_parent, scale, guard):
+        rows = hit.nonzero().squeeze(1)
+        dws.append(xb[src[rows]].T @ gb[rows])
+    return torch.stack(dws)
 
 
 # ----------------------------------------------------------------- kernels
@@ -113,6 +163,29 @@ def _launch(fn, *args):
         raise RuntimeError(f'{fn.__name__} launch failed: cudaError {rc}')
 
 
+def _bf16(t):
+    """t as a contiguous bf16 tensor whose data is 16-byte aligned (the
+    kernels load 8 bf16 values at a time)."""
+    t = t.to(torch.bfloat16).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _geometry(kernel_size, stride_child, stride_parent):
+    """(offsets per axis, first offset, query sign) of a key_conv mode."""
+    if stride_child or stride_parent:
+        return 2, 0, -1 if stride_parent else 1
+    return kernel_size, -(kernel_size // 2), 1
+
+
+def _slices(n_rows, blocks_per_slice):
+    """Row-tile slices of a dw launch: ~32 blocks per SM of the H100 in all
+    (each tile is a chain of dependent loads, match table then gather, and
+    more blocks in flight hide more of that wait), at most one slice per
+    64-row tile."""
+    n_tiles = max(1, -(-n_rows // 64))
+    return max(1, min(n_tiles, -(-32 * 132 // blocks_per_slice)))
+
+
 def key_conv(x, keys_in_b, keys_out, w, *, kernel_size=3, stride_child=False,
              stride_parent=False, scale=1, guard=True):
     """Same-level (guarded), down (stride_child) or transpose up
@@ -132,12 +205,10 @@ def key_conv(x, keys_in_b, keys_out, w, *, kernel_size=3, stride_child=False,
         raise TypeError(f'key_conv: x dtype {x.dtype}')
     from box2mask_torch.sparse import _build
     lib = _build.load('key_conv')
-    strided = stride_child or stride_parent
-    ks = 2 if strided else kernel_size
+    ks, lo, sign = _geometry(kernel_size, stride_child, stride_parent)
     B, pad_in = keys_in_b.shape
     pad_out = keys_out.numel() // B
-    xb = x.to(torch.bfloat16).contiguous()
-    wb = w.to(torch.bfloat16).contiguous()
+    xb, wb = _bf16(x), _bf16(w)
     kin = keys_in_b.contiguous()
     kout = keys_out.reshape(-1).contiguous()
     out = torch.empty(B * pad_out, w.shape[2], dtype=x.dtype, device=x.device)
@@ -145,10 +216,8 @@ def key_conv(x, keys_in_b, keys_out, w, *, kernel_size=3, stride_child=False,
         stream = torch.cuda.current_stream().cuda_stream
         _launch(lib.b2m_key_conv, xb.data_ptr(), kin.data_ptr(),
                 kout.data_ptr(), wb.data_ptr(), out.data_ptr(), B, pad_in,
-                pad_out, x.shape[1], w.shape[2], ks,
-                0 if strided else -(kernel_size // 2),
-                -1 if stride_parent else 1, scale, int(bool(guard)),
-                int(x.dtype == torch.bfloat16), stream)
+                pad_out, x.shape[1], w.shape[2], ks, lo, sign, scale,
+                int(bool(guard)), int(x.dtype == torch.bfloat16), stream)
     LAUNCHES[mode] += 1
     return out
 
@@ -170,8 +239,7 @@ def key_conv_stem(x, keys_in_b, w):
     from box2mask_torch.sparse import _build
     lib = _build.load('key_conv')
     B, pad = keys_in_b.shape
-    xb = x.to(torch.bfloat16).contiguous()
-    wb = w.to(torch.bfloat16).contiguous()
+    xb, wb = _bf16(x), _bf16(w)
     kin = keys_in_b.contiguous()
     out = torch.empty(B * pad, w.shape[2], dtype=torch.float32,
                       device=x.device)
@@ -182,3 +250,239 @@ def key_conv_stem(x, keys_in_b, w):
                 w.shape[2], stream)
     LAUNCHES['stem'] += 1
     return out
+
+
+def _check_dw(x, g, keys_in_b, keys_out):
+    B, pad_in = keys_in_b.shape
+    if x.dim() != 2 or g.dim() != 2 or x.shape[0] != B * pad_in:
+        raise ValueError(f'bad shapes x {tuple(x.shape)} g {tuple(g.shape)}')
+    if g.shape[0] != keys_out.numel() or keys_out.numel() % B:
+        raise ValueError('g rows must equal keys_out, a multiple of B')
+    for name, t in (('g', g), ('keys_in_b', keys_in_b),
+                    ('keys_out', keys_out)):
+        if t.device != x.device:
+            raise ValueError(f'{name} on {t.device}, x on {x.device}')
+    if keys_in_b.dtype != torch.int32 or keys_out.dtype != torch.int32:
+        raise TypeError('keys must be int32')
+    if g.shape[1] % 16:
+        raise ValueError(f'cout {g.shape[1]} must be a multiple of 16')
+
+
+def key_conv_dw(x, g, keys_in_b, keys_out, *, kernel_size=3,
+                stride_child=False, stride_parent=False, scale=1, guard=True):
+    """Weight gradient of key_conv in the same mode: (K, Cin, Cout) f32 from
+    x (B*pad_in, Cin) and the output cotangent g (B*pad_out, Cout), both
+    rounded to bf16. See the module docstring."""
+    if x.device.type == 'cpu':
+        PLAIN_CALLS['dw'] += 1
+        return key_conv_dw_plain(x, g, keys_in_b, keys_out,
+                                 kernel_size=kernel_size,
+                                 stride_child=stride_child,
+                                 stride_parent=stride_parent, scale=scale,
+                                 guard=guard)
+    if x.device.type != 'cuda':
+        raise ValueError(f'key_conv_dw: unsupported device {x.device}')
+    _check_dw(x, g, keys_in_b, keys_out)
+    from box2mask_torch.sparse import _build
+    lib = _build.load('key_conv')
+    ks, lo, sign = _geometry(kernel_size, stride_child, stride_parent)
+    K = ks ** 3
+    B, pad_in = keys_in_b.shape
+    pad_out = keys_out.numel() // B
+    cin, cout = x.shape[1], g.shape[1]
+    # blocks per slice: offsets x input-channel chunks (64, or 128 past cin
+    # 64: csrc dw_ci) x output-channel chunks
+    S = _slices(B * pad_out, K * -(-cin // (64 if cin <= 64 else 128))
+                * -(-cout // 128))
+    xb, gb = _bf16(x), _bf16(g)
+    kin = keys_in_b.contiguous()
+    kout = keys_out.reshape(-1).contiguous()
+    part = torch.empty(S, K, cin, cout, dtype=torch.float32, device=x.device)
+    dw = torch.empty(K, cin, cout, dtype=torch.float32, device=x.device)
+    table = torch.empty(K, B * pad_out, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.b2m_key_conv_dw, xb.data_ptr(), kin.data_ptr(),
+                kout.data_ptr(), gb.data_ptr(), part.data_ptr(),
+                dw.data_ptr(), table.data_ptr(), B, pad_in, pad_out, cin,
+                cout, ks, lo, sign, scale, int(bool(guard)), S, stream)
+    LAUNCHES['dw'] += 1
+    return dw
+
+
+def key_conv_stem_dw(x, g, keys_in_b):
+    """Weight gradient of key_conv_stem: (125, Cin, Cout) f32 from x
+    (B*pad, Cin <= 8) and g (B*pad, Cout), both rounded to bf16."""
+    if x.device.type == 'cpu':
+        PLAIN_CALLS['stem_dw'] += 1
+        return key_conv_dw_plain(x, g, keys_in_b, keys_in_b.reshape(-1),
+                                 kernel_size=5, guard=True)
+    if x.device.type != 'cuda':
+        raise ValueError(f'key_conv_stem_dw: unsupported device {x.device}')
+    kin = keys_in_b.contiguous()
+    _check_dw(x, g, kin, kin.reshape(-1))
+    if not 1 <= x.shape[1] <= 8 or g.shape[1] not in (16, 32):
+        raise ValueError(f'stem dw expects cin <= 8 and cout 16 or 32, got '
+                         f'{x.shape[1]}, {g.shape[1]}')
+    from box2mask_torch.sparse import _build
+    lib = _build.load('key_conv')
+    B, pad = kin.shape
+    cin, cout = x.shape[1], g.shape[1]
+    S = _slices(B * pad, 5)
+    xb, gb = _bf16(x), _bf16(g)
+    part = torch.empty(S, 125, cin, cout, dtype=torch.float32,
+                       device=x.device)
+    dw = torch.empty(125, cin, cout, dtype=torch.float32, device=x.device)
+    table = torch.empty(125, B * pad, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(lib.b2m_key_conv_stem_dw, xb.data_ptr(), kin.data_ptr(),
+                gb.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                table.data_ptr(), B, pad, cin, cout, S, stream)
+    LAUNCHES['stem_dw'] += 1
+    return dw
+
+
+# ---------------------------------------------------------------- autograd
+def mirror_weights(w):
+    """w'[k] = w[K-1-k]^T: the same-level conv's dx weights (odd kernels
+    enumerate x-major over symmetric ranges, so negating an offset reverses
+    its index). Port of box2mask_tpu/sparse/key_conv.py:1023."""
+    return w.flip(0).transpose(1, 2)
+
+
+class _KeyConvSame(torch.autograd.Function):
+    """Same-level conv (JAX key_conv_train, :1031 / _kct_bwd :1065)."""
+
+    @staticmethod
+    def forward(ctx, x, w, keys_in_b, keys_out, kernel_size, scale, guard):
+        ctx.static = dict(kernel_size=kernel_size, scale=scale, guard=guard)
+        ctx.x_dtype = x.dtype
+        ctx.save_for_backward(
+            x.to(SAVED_X_DTYPE) if ctx.needs_input_grad[1] else None,
+            keys_in_b, keys_out, w)
+        return key_conv(x, keys_in_b, keys_out, w, **ctx.static)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x_bf, kin, kout, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = key_conv(gout, kin, kout, mirror_weights(w),
+                          **ctx.static).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = key_conv_dw(x_bf, gout, kin, kout,
+                             **ctx.static).to(w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
+class _KeyConvDown(torch.autograd.Function):
+    """Stride-2 down conv, fine keys_in_b -> coarse keys_out (JAX
+    key_conv_down_plan_train, :1126 / _kcdp_bwd :1150): dx is the transpose
+    (stride_parent) conv of the cotangent over (coarse rows, fine keys)
+    with w^T; dw is the stride_child dw."""
+
+    @staticmethod
+    def forward(ctx, x, w, keys_in_b, keys_out, scale):
+        ctx.scale = scale
+        ctx.x_dtype = x.dtype
+        ctx.save_for_backward(
+            x.to(SAVED_X_DTYPE) if ctx.needs_input_grad[1] else None,
+            keys_in_b, keys_out, w)
+        return key_conv(x, keys_in_b, keys_out, w, kernel_size=2,
+                        stride_child=True, scale=scale, guard=False)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x_bf, kin, kout, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = key_conv(gout, kout.reshape(kin.shape[0], -1),
+                          kin.reshape(-1), w.transpose(1, 2), kernel_size=2,
+                          stride_parent=True, scale=ctx.scale,
+                          guard=False).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = key_conv_dw(x_bf, gout, kin, kout, kernel_size=2,
+                             stride_child=True, scale=ctx.scale,
+                             guard=False).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+class _KeyConvUp(torch.autograd.Function):
+    """Stride-2 transpose conv, coarse keys_in_b -> fine keys_out (JAX
+    key_conv_up_train, :1172 / _kcu_bwd :1201): dx is the down
+    (stride_child) conv of the cotangent over (fine rows, coarse keys) with
+    w^T; dw is the stride_parent dw."""
+
+    @staticmethod
+    def forward(ctx, x, w, keys_in_b, keys_out, scale):
+        ctx.scale = scale
+        ctx.x_dtype = x.dtype
+        ctx.save_for_backward(
+            x.to(SAVED_X_DTYPE) if ctx.needs_input_grad[1] else None,
+            keys_in_b, keys_out, w)
+        return key_conv(x, keys_in_b, keys_out, w, kernel_size=2,
+                        stride_parent=True, scale=scale, guard=False)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x_bf, kin, kout, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = key_conv(gout, kout.reshape(kin.shape[0], -1),
+                          kin.reshape(-1), w.transpose(1, 2), kernel_size=2,
+                          stride_child=True, scale=ctx.scale,
+                          guard=False).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = key_conv_dw(x_bf, gout, kin, kout, kernel_size=2,
+                             stride_parent=True, scale=ctx.scale,
+                             guard=False).to(w.dtype)
+        return dx, dw, None, None, None
+
+
+class _KeyConvStem(torch.autograd.Function):
+    """5^3 stem (JAX key_conv_stem_train, :713 / _kcs_bwd :731): dw from the
+    stem dw kernel; dx is zeros, the stem's input being data."""
+
+    @staticmethod
+    def forward(ctx, x, w, keys_in_b):
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        ctx.save_for_backward(
+            x.to(SAVED_X_DTYPE) if ctx.needs_input_grad[1] else None,
+            keys_in_b, w)
+        return key_conv_stem(x, keys_in_b, w)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x_bf, kin, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.zeros(ctx.x_shape, dtype=ctx.x_dtype,
+                             device=gout.device)
+        if ctx.needs_input_grad[1]:
+            dw = key_conv_stem_dw(x_bf, gout, kin).to(w.dtype)
+        return dx, dw, None
+
+
+def key_conv_train(x, keys_in_b, keys_out, w, *, kernel_size=3, scale=1,
+                   guard=True):
+    """Differentiable same-level conv (input space == output space)."""
+    return _KeyConvSame.apply(x, w, keys_in_b, keys_out, kernel_size, scale,
+                              guard)
+
+
+def key_conv_down_train(x, keys_in_b, keys_out, w, *, scale=1):
+    """Differentiable stride-2 down conv (fine keys_in_b -> coarse
+    keys_out)."""
+    return _KeyConvDown.apply(x, w, keys_in_b, keys_out, scale)
+
+
+def key_conv_up_train(x, keys_in_b, keys_out, w, *, scale=1):
+    """Differentiable stride-2 transpose conv (coarse keys_in_b -> fine
+    keys_out)."""
+    return _KeyConvUp.apply(x, w, keys_in_b, keys_out, scale)
+
+
+def key_conv_stem_train(x, keys_in_b, w):
+    """Differentiable 5^3 stem conv (dx is zeros)."""
+    return _KeyConvStem.apply(x, w, keys_in_b)

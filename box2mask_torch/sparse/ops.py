@@ -2,7 +2,8 @@
 conv dispatch, 1x1 linear, masked moments, segment pooling.
 
 Port of box2mask_tpu/sparse/ops.py (gather_conv's key_conv branch :87-116,
-up_conv's :160-165, linear :182, masked_moments :192, segment_* :211-243).
+up_conv's :160-165, both through the differentiable key_conv_*_train
+wrappers; linear :182, masked_moments :192, segment_* :211-243).
 Matmuls multiply operands rounded to `compute_dtype` in f32 (the JAX
 package's preferred_element_type=f32); segment sums accumulate in f32 with a
 trash segment at `num_segments` that is dropped.
@@ -34,22 +35,23 @@ def up_operand(batch, level):
 
 
 def gather_conv(x, op, w):
-    """Sparse conv over a key operand (conv_operand)."""
+    """Sparse conv over a key operand (conv_operand), differentiable in x
+    and w through the key_conv autograd Functions (train and eval alike)."""
     ks, scale = op['ksize'], op['scale']
     if op['stride_child']:
-        return KC.key_conv(x, op['keys_in'], op['keys_out'], w,
-                           stride_child=True, scale=scale, guard=False)
+        return KC.key_conv_down_train(x, op['keys_in'], op['keys_out'], w,
+                                      scale=scale)
     if ks == 5 and scale == 1 and x.shape[1] <= 8:
-        return KC.key_conv_stem(x, op['keys_in'], w)
-    return KC.key_conv(x, op['keys_in'], op['keys_out'], w, kernel_size=ks,
-                       scale=scale, guard=True)
+        return KC.key_conv_stem_train(x, op['keys_in'], w)
+    return KC.key_conv_train(x, op['keys_in'], op['keys_out'], w,
+                             kernel_size=ks, scale=scale, guard=True)
 
 
 def up_conv(x_coarse, op, w):
     """Every fine row matches exactly one parent, in its up_widx weight slot
     (see key_conv stride_parent)."""
-    return KC.key_conv(x_coarse, op['keys_in'], op['keys_out'], w,
-                       stride_parent=True, scale=op['scale'], guard=False)
+    return KC.key_conv_up_train(x_coarse, op['keys_in'], op['keys_out'], w,
+                                scale=op['scale'])
 
 
 def linear(x, w, b=None, compute_dtype=torch.bfloat16):

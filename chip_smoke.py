@@ -13,7 +13,20 @@ Phases, in order; any failure exits non-zero:
      and one batch's forward + post-processing under torch.profiler (device
      busy time, idle share, kernels by device time);
   4. the whole forward with the kernels against the same forward with the
-     plain twins, on one of those batches.
+     plain twins, on one of those batches;
+  5. the weight-gradient kernels (dw in its three modes, stem dw) against
+     their plain twins at the training path's shapes (keys of 8 ScanNet-scale
+     scenes), timed;
+  6. the training slice: configs/scannet.txt as it ships (layers 2, bf16
+     activations, batch size 8, augmentation, box supervision, no remat) on
+     2 unique batches of 8 labelled ScanNet-scale synthetic scenes from the
+     port's loader, seeded kaiming weights, 6 train steps each with its own
+     learning rate; every loss finite, every kernel mode launched (dw and
+     stem dw included), no twin ran; then the step split into forward,
+     backward and optimizer (each run alone and synchronized), peak memory,
+     and one step under torch.profiler;
+  7. one step's gradients with the kernels against the same step's with the
+     plain twins, per parameter tensor.
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and last `{"ok": true, "device": {...}}`.
 """
@@ -30,7 +43,7 @@ import torch
 
 from box2mask_torch.config import get_config
 from box2mask_torch.convert import kaiming_init_
-from box2mask_torch.datasets import synthetic, tables
+from box2mask_torch.datasets import loader, synthetic, tables
 from box2mask_torch.engine import state as S
 from box2mask_torch.engine.infer import FusedInferencePipeline, upload
 from box2mask_torch.postprocess.device_post import (fused_postproc,
@@ -41,14 +54,38 @@ from box2mask_torch.sparse.keys import SENT_KEY
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH, N_BATCHES = 4, 3
+TRAIN_STEPS = 6
+FWD_MODES = ('same', 'down', 'up', 'stem')
 HBM_BYTES_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 BF16_FLOP_S = 989e12
 F32_TOL = 2e-5                  # of max |twin|: f32 sum order only
+# dw sums n = up to ~1M rows per element in another order on each side (the
+# kernel in 64-row tensor-core steps per slice, then over the slices; the
+# twin's GEMM along the rows). A recursive f32 sum of n terms strays by
+# ~sqrt(n) * 2^-24 of the sum of their absolute values: the bound is 4x
+# that, of max (|x|^T |g|), the twin on absolute values. Each dw is also
+# held to an f64 sum of the same bf16 operands, and both sides' distance
+# from it is printed.
+def dw_tol(n_rows):
+    return 4 * n_rows ** 0.5 * 2.0 ** -24
+
+
 FWD_MAX_TOL = 2e-2              # of max |head|: bf16 rounding flips
 FWD_MEAN_TOL = 4e-3             # (the CPU forward test's bf16_acts bounds)
 SRC = 'box2mask_torch/csrc/key_conv.cu'
 TPU_KERNEL = 'box2mask_tpu/sparse/key_conv.py:116'     # _kernel
 TPU_STEM = 'box2mask_tpu/sparse/key_conv.py:542'       # _stem_kernel
+TPU_DW = 'box2mask_tpu/sparse/key_conv.py:814'         # _dw_kernel
+TPU_STEM_DW = 'box2mask_tpu/sparse/key_conv.py:557'    # _stem_dw_kernel
+# one step's grads, kernels vs twins: |diff| / |twin| over all tensors (L2)
+# and the cosine of the two grad vectors. Every conv rounds its operands to
+# bf16, so an f32 sum that lands near a rounding boundary in one version
+# rounds the other way in the next conv, and at random init the train-mode
+# network amplifies those flips through its deep, few-row levels
+# (tests/test_torch_train_step.py measures the same floor on the CPU):
+# measured L2 0.07-0.12, cosine 0.993-0.997. Each launch of the step is held
+# to its twin on its own inputs as well, to the kernel tolerances above.
+GRAD_L2_TOL, GRAD_COS_TOL = 0.3, 0.98
 
 
 def log(*a):
@@ -87,6 +124,31 @@ def hits(kin, kout, **kw):
     ones = torch.ones(kin.numel(), 1, device=kin.device)
     w = torch.ones(K, 1, 1, device=kin.device)
     return int(KC.key_conv_plain(ones, kin, kout, w, **kw).sum().item())
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes >= t_ops else 'operations')
+
+
+def dw_check(x, g, kin, kout, a, b, **kw):
+    """A dw kernel result `a` and its twin's `b` against the bound
+    dw_tol(rows) of max |x|^T|g|, and both against the f64 sum. Returns
+    (max |a - b|, tolerance, a's and b's distance from the f64 sum over
+    max |x|^T|g|, ok)."""
+    f64 = dict(operand_dtype=torch.float64)
+    xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    ref = KC.key_conv_dw_plain(xb, gb, kin, kout, **f64, **kw)
+    scale = KC.key_conv_dw_plain(xb.abs(), gb.abs(), kin, kout, **f64,
+                                 **kw).max().item()
+    tol = dw_tol(kout.numel()) * scale
+    err = (a - b).abs().max().item()
+    d_a = (a.double() - ref).abs().max().item() / scale
+    d_b = (b.double() - ref).abs().max().item() / scale
+    ok = (err <= tol and d_a <= dw_tol(kout.numel())
+          and a.shape == b.shape and bool(torch.isfinite(a).all()))
+    return err, tol, d_a, d_b, ok
 
 
 def kernel_phase(dev, g):
@@ -155,13 +217,12 @@ def kernel_phase(dev, g):
             nbytes = (n_in * cin * x.element_size() + keys_bytes
                       + w.numel() * 2 + out_bytes)
             flops = 2.0 * n_hits * cin * cout
-            t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
+            bound_ms, bound_by = bound(nbytes, flops)
             row = dict(name=f'{name}_{str(dt)[6:]}', mode=mode,
                        max_abs_err=err.max().item(), tol=tol_txt, ms=ms,
-                       plain_ms=plain_ms,
-                       bound_ms=max(t_bytes, t_ops) * 1e3,
-                       bound_by='bytes' if t_bytes >= t_ops else 'operations',
-                       bytes=nbytes, flops=flops, hits=n_hits)
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes, flops=flops,
+                       hits=n_hits)
             log(f'[kernel] {row["name"]}: max_abs_err {row["max_abs_err"]:.3e}'
                 f' (tol {tol_txt}) kernel {ms:.3f} ms, plain twin '
                 f'{plain_ms:.3f} ms, bound {row["bound_ms"]:.4f} ms '
@@ -202,15 +263,24 @@ def stage_phase(pipe, cfg, batches, device, smi):
                      'n_keep': out_np['n_keep'].tolist()})
     log('[stages] ' + json.dumps({'card': smi, 'per_batch': rows}))
 
-    from torch.profiler import ProfilerActivity, profile
     batch = upload(batches[0][0], device)
+
+    def window():
+        full = S.ensure_maps(batch)
+        fused_postproc(pipe.core, cfg, pipe.model(full), full, ths,
+                       pipe.top_k)
+    profile_window('profile', window, smi)
+
+
+def profile_window(tag, fn, smi):
+    """fn() under torch.profiler: wall time, device busy time, idle share
+    and the kernels by device time, as one `[tag]` JSON line."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        full = S.ensure_maps(batch)
-        fused_postproc(pipe.core, cfg, pipe.model(full), full, ths,
-                       pipe.top_k)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     agg = {}
@@ -220,13 +290,234 @@ def stage_phase(pipe, cfg, batches, device, smi):
             agg[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
     top = sorted(agg.items(), key=lambda kv: -kv[1][0])
     busy = sum(t for t, _ in agg.values())
-    log('[profile] ' + json.dumps({
+    log(f'[{tag}] ' + json.dumps({
         'card': smi, 'wall_ms': wall_ms, 'device_busy_ms': busy,
         'idle_share': 1.0 - busy / wall_ms,
         'top': [{'name': k[:100], 'ms': t, 'calls': c}
                 for k, (t, c) in top[:12]]}))
     if busy <= 0:
         raise AssertionError('the profiler saw no device time')
+
+
+def dw_phase(dev, g):
+    """dw in its three modes and the stem dw at the training path's shapes
+    (bf16 x and g as the backward gives them; the stem's g is f32): kernel
+    vs plain twin, timed."""
+    keys = [dev[f'keys{l}_b'] for l in range(8)]
+    sites = [  # name, mode, cin, cout, keys in, keys out, kwargs
+        ('dw_same3_l0_96', 'dw', 96, 96, 0, 0, dict(kernel_size=3, scale=1)),
+        ('dw_same3_l0_128_96', 'dw', 128, 96, 0, 0,      # dec0_block0
+         dict(kernel_size=3, scale=1)),
+        ('dw_same3_l2_64', 'dw', 64, 64, 2, 2, dict(kernel_size=3, scale=4)),
+        ('dw_same3_l3_256', 'dw', 256, 256, 3, 3,
+         dict(kernel_size=3, scale=8)),
+        ('dw_down_l0_32', 'dw', 32, 32, 0, 1,
+         dict(kernel_size=2, stride_child=True, scale=1, guard=False)),
+        ('dw_up_l1_96', 'dw', 96, 96, 1, 0,              # up0_tr
+         dict(kernel_size=2, stride_parent=True, scale=1, guard=False)),
+        ('stem_dw_6_32', 'stem_dw', 6, 32, 0, 0, dict(kernel_size=5)),
+    ]
+    rows = []
+    for name, mode, cin, cout, li, lo, kw in sites:
+        kin, kout = keys[li], keys[lo].reshape(-1)
+        x = torch.randn(kin.numel(), cin, generator=g).to('cuda',
+                                                          torch.bfloat16)
+        gr = torch.randn(kout.numel(), cout, generator=g).to('cuda')
+        if mode == 'stem_dw':
+            kern = lambda: KC.key_conv_stem_dw(x, gr, kin)          # noqa
+        else:
+            gr = gr.to(torch.bfloat16)
+            kern = lambda: KC.key_conv_dw(x, gr, kin, kout, **kw)   # noqa
+        twin = lambda: KC.key_conv_dw_plain(x, gr, kin, kout, **kw)  # noqa
+        a, b = kern(), twin()
+        err, tol, d_a, d_b, ok = dw_check(x, gr, kin, kout, a, b, **kw)
+        tol_txt = (f'{dw_tol(kout.numel()):.2e} * max |x|^T|g| = {tol:.3e}; '
+                   f'from the f64 sum: kernel {d_a:.2e}, twin {d_b:.2e} of '
+                   'max |x|^T|g|')
+        if not ok:
+            raise AssertionError(f'{name}: max err {err} ({tol_txt})')
+        if not torch.equal(a, kern()):
+            raise AssertionError(f'{name}: two launches differ')
+        ms, plain_ms = time_ms(kern), time_ms(twin)
+        n_hits = hits(kin, kout, **kw)
+        n_in = int((kin < SENT_KEY).sum())
+        n_kout = int((kout < SENT_KEY).sum())
+        # least traffic: valid x rows and g rows as the bf16 the kernel
+        # multiplies, the valid keys, the f32 dw written once
+        nbytes = (2 * (n_in * cin + n_kout * cout)
+                  + 4 * (n_in + (0 if li == lo else n_kout)) + a.numel() * 4)
+        flops = 2.0 * n_hits * cin * cout
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = dict(name=name, mode=mode, max_abs_err=err, tol=tol_txt, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, flops=flops, hits=n_hits)
+        log(f'[kernel] {name}: max_abs_err {err:.3e} (tol {tol_txt}) kernel '
+            f'{ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound '
+            f'{bound_ms:.4f} ms ({bound_by}; {nbytes} B, {flops:.3e} FLOP)')
+        rows.append(row)
+    return rows
+
+
+def train_batches(smi):
+    """2 unique batches of 8 labelled ScanNet-scale synthetic scenes from
+    the port's loader, under the preset as it ships."""
+    cfg = get_config([
+        '--config', os.path.join(ROOT, 'configs', 'scannet.txt'),
+        '--vox_bucket', '131072', '--seg_bucket', '2048',
+        '--dataset_name', 'synthetic', '--dataset_size', '16',
+        '--synthetic_instances', '18',
+        '--synthetic_points_per_instance', '4000',
+        '--synthetic_floor_points', '45000', '--synthetic_wall_points',
+        '35000', '--fixed_seed', '7', '--num_workers', '8'])
+    assert (cfg.batch_size == 8 and cfg.bf16_acts and cfg.augmentation
+            and cfg.bb_supervision and cfg.layers == 2 and not cfg.remat)
+    t0 = time.perf_counter()
+    ld = loader.get_dataset(cfg, 'train').get_loader()
+    batches = list(ld)
+    ld.close()
+    log(f'[host] {len(batches)} train batches of {cfg.batch_size} scenes '
+        f'prepared in {time.perf_counter() - t0:.1f} s; level-0 voxels per '
+        f'scene {[n for _, h in batches for n in h["num_voxels"]]}')
+    if len(batches) != 2:
+        raise AssertionError(f'{len(batches)} train batches')
+    return cfg, batches
+
+
+def train_phase(cfg, batches, device, smi):
+    """The training slice: TRAIN_STEPS steps, each with its own learning
+    rate, cycling over the batches; then where the step's time goes."""
+    n_classes = len(tables.get_tables('scannet')[0])
+    tx = S.make_optimizer(cfg)
+    state = S.init_state(cfg, S.build_model(cfg, n_classes), tx, seed=1)
+    dev = [upload(d, device) for d, _ in batches]
+    bb_w, cs_w = S.head_weights(cfg, 200)          # every head weighted
+    S.train_step(cfg, state, dev[0], cfg.lr, bb_w, cs_w)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    KC.reset_counts()
+    lrs = [cfg.lr * (1 - 0.1 * i) for i in range(TRAIN_STEPS)]
+    losses = []
+    t0 = time.perf_counter()
+    for i, lr in enumerate(lrs):
+        _, ld = S.train_step(cfg, state, dev[i % len(dev)], lr, bb_w, cs_w)
+        losses.append(ld)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(KC.LAUNCHES), dict(KC.PLAIN_CALLS)
+    peak = torch.cuda.max_memory_allocated(device)
+    opt = [float(ld['optimization_loss']) for ld in losses]
+    finite = all(torch.isfinite(v).all().item() for ld in losses
+                 for v in ld.values())
+    log(f'[train] optimization_loss per step {opt} (lr {lrs}); launches '
+        f'per mode over {TRAIN_STEPS} steps: {launches}; plain-twin calls: '
+        f'{plain}')
+    if not finite:
+        raise AssertionError('non-finite losses in the training slice')
+    if min(launches.values()) == 0 or sum(plain.values()) != 0:
+        raise AssertionError('the train steps did not run every kernel, or '
+                             'ran a plain twin')
+
+    split = []
+    for b in dev:                       # each phase run alone, synchronized
+        ld, t_fwd = sync_ms(lambda: S.forward_losses(cfg, state, b, bb_w,
+                                                     cs_w))
+        _, t_bwd = sync_ms(lambda: S.backward(ld))
+        _, t_opt = sync_ms(lambda: S.apply_update(state, lrs[-1]))
+        split.append({'forward_ms': t_fwd, 'backward_ms': t_bwd,
+                      'optimizer_ms': t_opt})
+    scenes = TRAIN_STEPS * cfg.batch_size
+    log('[train] ' + json.dumps({
+        'card': smi, 'steps': TRAIN_STEPS, 'batch_size': cfg.batch_size,
+        'wall_s': wall, 'steps_per_s': TRAIN_STEPS / wall,
+        'scenes_per_s': scenes / wall, 'ms_per_step': wall / TRAIN_STEPS * 1e3,
+        'split_per_batch': split, 'peak_max_memory_allocated_GB': peak / 1e9,
+        'launches': launches}))
+    profile_window('train_profile', lambda: S.train_step(
+        cfg, state, dev[0], lrs[-1], bb_w, cs_w), smi)
+    return state, dev, launches
+
+
+def grads_phase(cfg, state, batch):
+    """One step's grads with the kernels against the same step's with the
+    plain twins, from the same parameters (BN normalizes with batch
+    moments, so the running statistics moved by one pass do not enter the
+    next). In the kernels' pass every launch is also held to its twin on
+    the same inputs."""
+    bb_w, cs_w = S.head_weights(cfg, 200)
+    kern = {'key_conv': KC.key_conv, 'key_conv_stem': KC.key_conv_stem,
+            'key_conv_dw': KC.key_conv_dw,
+            'key_conv_stem_dw': KC.key_conv_stem_dw}
+    twin = {'key_conv': KC.key_conv_plain,
+            'key_conv_stem': lambda x, kin, w: KC.key_conv_plain(
+                x, kin, kin.reshape(-1), w, kernel_size=5,
+                out_dtype=torch.float32),
+            'key_conv_dw': KC.key_conv_dw_plain,
+            'key_conv_stem_dw': lambda x, g, kin: KC.key_conv_dw_plain(
+                x, g, kin, kin.reshape(-1), kernel_size=5)}
+    worst = {}
+
+    def checked(name):
+        def fn(*a, **kw):
+            out, ref = kern[name](*a, **kw), twin[name](*a, **kw)
+            o, r = out.float(), ref.float()
+            err = (o - r).abs()
+            scale = r.abs().max().clamp(min=1e-30).item()
+            rel = err.max().item() / scale
+            ok = rel <= F32_TOL
+            if name.endswith('_dw'):             # sums of up to ~1M rows
+                x, g, *rest = a
+                if name == 'key_conv_stem_dw':
+                    rest, kw = [rest[0], rest[0].reshape(-1)], {
+                        'kernel_size': 5}
+                e, tol, d_a, d_b, ok = dw_check(x, g, *rest, out, ref, **kw)
+                rel = max(d_a, d_b)
+            elif out.dtype == torch.bfloat16:    # one rounding step
+                ulp = torch.maximum(bf16_ulp(o), bf16_ulp(r))
+                ok = bool((err <= ulp + F32_TOL * scale).all())
+            key = f'{name}_{str(out.dtype)[6:]}'
+            n, w, good = worst.get(key, (0, 0.0, True))
+            worst[key] = (n + 1, max(w, rel), good and ok)
+            return out
+        return fn
+
+    def grads(fns):
+        saved = {k: getattr(KC, k) for k in fns}
+        for k, f in fns.items():
+            setattr(KC, k, f)
+        try:
+            S.backward(S.forward_losses(cfg, state, batch, bb_w, cs_w))
+        finally:
+            for k, f in saved.items():
+                setattr(KC, k, f)
+        out = {n: p.grad.detach().clone()
+               for n, p in state.model.named_parameters()}
+        state.model.zero_grad(set_to_none=True)
+        return out
+
+    gk = grads({k: checked(k) for k in kern})
+    log('[grads] every launch of one step vs its twin on the same inputs '
+        '(calls, worst max |diff| / max |twin| -- for dw the larger '
+        'distance of kernel and twin from the f64 sum / max |x|^T|g| --, '
+        'within tolerance): ' + json.dumps(worst))
+    if not all(good for _, _, good in worst.values()):
+        raise AssertionError(f'a launch differs from its twin: {worst}')
+    gt = grads(twin)
+    num = sum(float((gk[k].double() - gt[k].double()).square().sum())
+              for k in gt)
+    den = sum(float(gt[k].double().square().sum()) for k in gt)
+    dot = sum(float((gk[k].double() * gt[k].double()).sum()) for k in gt)
+    nk = sum(float(gk[k].double().square().sum()) for k in gt)
+    l2, cos = (num / den) ** 0.5, dot / (nk * den) ** 0.5
+    per = {k: ((gk[k] - gt[k]).abs().max() / gt[k].abs().max().clamp(
+        min=1e-30)).item() for k in gt}
+    finite = all(torch.isfinite(v).all().item() for v in gk.values())
+    log(f'[grads] {len(gt)} parameter tensors, kernels vs twins: |diff| / '
+        f'|twin| (L2 over all) {l2:.3e} (bound {GRAD_L2_TOL:g}), cosine '
+        f'{cos:.6f} (bound {GRAD_COS_TOL:g}); per tensor max |diff| / max '
+        f'|twin|: median {statistics.median(per.values()):.3e}, worst five '
+        f'{sorted(per.items(), key=lambda kv: -kv[1])[:5]}')
+    if not (finite and l2 <= GRAD_L2_TOL and cos >= GRAD_COS_TOL):
+        raise AssertionError(f'grads: kernels vs twins L2 {l2}, cos {cos}')
 
 
 def main():
@@ -266,7 +557,6 @@ def main():
     # ---- 3. the slice
     model = S.build_model(cfg, len(valid_ids))
     kaiming_init_(model, torch.Generator().manual_seed(1))
-    model.to(device)
     pipe = FusedInferencePipeline(cfg, valid_ids, is_fg, model=model,
                                   top_k=128, max_masks=256)
     for _ in pipe.run(None, batches[:1], cfg.eval_ths):     # warm-up
@@ -306,7 +596,8 @@ def main():
     log(f'[slice] head outputs finite in all {N_BATCHES} batches')
     log(f'[slice] launches per mode over {N_BATCHES} batches: {launches}; '
         f'plain-twin calls: {plain}')
-    if min(launches.values()) == 0 or sum(plain.values()) != 0:
+    if (min(launches[m] for m in FWD_MODES) == 0
+            or sum(plain.values()) != 0):
         raise AssertionError('main path did not run every kernel, or ran '
                              'a plain twin')
     scenes_s = n_results / wall
@@ -345,6 +636,16 @@ def main():
             raise AssertionError(f'{head}: forward differs by {rel} max, '
                                  f'{rel_mean} mean')
 
+    # ---- 5. weight-gradient kernels vs plain twins
+    tcfg, tbatches = train_batches(smi)
+    dw_rows = dw_phase(upload(tbatches[0][0], device), g)
+
+    # ---- 6. the training slice
+    state, tdev, train_launches = train_phase(tcfg, tbatches, device, smi)
+
+    # ---- 7. one step's grads: kernels vs plain twins
+    grads_phase(tcfg, state, tdev[1])
+
     kernels = []
     main_dtype = {'stem': 'float32'}
     for r in rows:
@@ -355,6 +656,14 @@ def main():
             'replaces': TPU_STEM if r['mode'] == 'stem' else TPU_KERNEL,
             'launches': launches[r['mode']], 'max_abs_err': r['max_abs_err'],
             'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+            'bound_by': r['bound_by'], 'library_ms': None})
+    for r in dw_rows:
+        kernels.append({
+            'name': r['name'], 'route': 'cuda', 'source': SRC,
+            'replaces': TPU_STEM_DW if r['mode'] == 'stem_dw' else TPU_DW,
+            'launches': train_launches[r['mode']],
+            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+            'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': None})
     log(smi)
     log(json.dumps({'kernels': kernels}))

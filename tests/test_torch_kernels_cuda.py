@@ -147,3 +147,107 @@ def test_kernel_matches_plain_twin_on_card(cuda, mode, level, dtype, cin,
     assert KC.LAUNCHES[mode] == before + 1
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                  dtype)
+
+
+# dw at the main path's widths (phase 5 of chip_smoke.py) plus cout 64 and
+# cin 128: (mode, level, cin, cout)
+DW_WIDTHS = [('same', 0, 96, 96), ('same', 0, 128, 96), ('same', 2, 64, 64),
+             ('same', 1, 256, 256), ('same', 1, 32, 64), ('same', 0, 128, 128),
+             ('down', 0, 32, 32), ('down', 1, 64, 64), ('down', 1, 128, 128),
+             ('up', 0, 96, 96), ('up', 1, 256, 256), ('up', 0, 128, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('xdtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('mode,level,cin,cout', DW_WIDTHS)
+def test_dw_kernel_matches_plain_twin_on_card(cuda, mode, level, cin, cout,
+                                              xdtype):
+    """dw is f32 from bf16-rounded x and g on both sides: 1e-5 of max |dw|
+    (f32 summation order)."""
+    x, kin, kout, w, kw = case(mode, level, cin=cin, cout=cout, seed=level)
+    xt = torch.from_numpy(x).to(cuda)
+    if xdtype == 'bf16':
+        xt = xt.to(torch.bfloat16)
+    g = torch.from_numpy(np.random.default_rng(level).normal(
+        size=(kout.size, cout)).astype(np.float32)).to(cuda)
+    kin_t = torch.from_numpy(kin).to(cuda)
+    kout_t = torch.from_numpy(kout.reshape(-1)).to(cuda)
+    before = KC.LAUNCHES['dw']
+    got = KC.key_conv_dw(xt, g, kin_t, kout_t, **kw)
+    want = KC.key_conv_dw_plain(xt, g, kin_t, kout_t, **kw)
+    torch.cuda.synchronize()
+    assert KC.LAUNCHES['dw'] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), 'f32')
+    again = KC.key_conv_dw(xt, g, kin_t, kout_t, **kw)
+    assert torch.equal(got, again)                  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cin,cout', [(6, 32), (3, 32), (8, 16)])
+def test_stem_dw_kernel_matches_plain_twin_on_card(cuda, cin, cout):
+    x, kin, _, w, _ = case('stem', cin=cin, cout=cout, seed=cin)
+    xt = torch.from_numpy(x).to(cuda)
+    kin_t = torch.from_numpy(kin).to(cuda)
+    g = torch.from_numpy(np.random.default_rng(cin).normal(
+        size=(x.shape[0], cout)).astype(np.float32)).to(cuda)
+    before = KC.LAUNCHES['stem_dw']
+    got = KC.key_conv_stem_dw(xt, g, kin_t)
+    want = KC.key_conv_dw_plain(xt, g, kin_t, kin_t.reshape(-1),
+                                kernel_size=5, guard=True)
+    torch.cuda.synchronize()
+    assert KC.LAUNCHES['stem_dw'] == before + 1
+    assert got.shape == (125, cin, cout)
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), 'f32')
+    assert torch.equal(got, KC.key_conv_stem_dw(xt, g, kin_t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode,level', [('same', 0), ('down', 0), ('up', 1),
+                                        ('stem', 0)])
+def test_train_function_grads_match_twins_on_card(cuda, monkeypatch, mode,
+                                                  level):
+    """The autograd Functions' dx and dw with the kernels against the same
+    Functions with the plain twins put in their place, bf16 input."""
+    cin = 6 if mode == 'stem' else 64
+    x, kin, kout, w, kw = case(mode, level, cin=cin, cout=32, seed=level)
+    kin_t = torch.from_numpy(kin).to(cuda)
+    kout_t = torch.from_numpy(kout.reshape(-1)).to(cuda)
+    c = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(kout.size, 32)).astype(np.float32)).to(cuda)
+
+    def grads():
+        xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+        xt.requires_grad_()
+        wt = torch.from_numpy(w).to(cuda).requires_grad_()
+        if mode == 'stem':
+            out = KC.key_conv_stem_train(xt, kin_t, wt)
+        elif mode == 'same':
+            out = KC.key_conv_train(xt, kin_t, kout_t, wt, kernel_size=3,
+                                    scale=kw['scale'])
+        elif mode == 'down':
+            out = KC.key_conv_down_train(xt, kin_t, kout_t, wt,
+                                         scale=kw['scale'])
+        else:
+            out = KC.key_conv_up_train(xt, kin_t, kout_t, wt,
+                                       scale=kw['scale'])
+        (out.float() * c).sum().backward()
+        return xt.grad, wt.grad
+
+    dx_k, dw_k = grads()
+    monkeypatch.setattr(KC, 'key_conv', KC.key_conv_plain)
+    monkeypatch.setattr(KC, 'key_conv_dw', KC.key_conv_dw_plain)
+    monkeypatch.setattr(KC, 'key_conv_stem', lambda x, kin, w: (
+        KC.key_conv_plain(x, kin, kin.reshape(-1), w, kernel_size=5,
+                          out_dtype=torch.float32)))
+    monkeypatch.setattr(KC, 'key_conv_stem_dw', lambda x, g, kin: (
+        KC.key_conv_dw_plain(x, g, kin, kin.reshape(-1), kernel_size=5)))
+    dx_t, dw_t = grads()
+    torch.cuda.synchronize()
+    assert dx_k.dtype == dx_t.dtype == torch.bfloat16
+    if mode == 'stem':                  # the stem's input is data
+        assert not dx_k.float().any() and not dx_t.float().any()
+    else:
+        assert_close(dx_k.float().cpu().numpy(),
+                     dx_t.float().cpu().numpy(), 'bf16')
+    assert_close(dw_k.cpu().numpy(), dw_t.cpu().numpy(), 'f32')
