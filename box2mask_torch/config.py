@@ -6,7 +6,14 @@ Reads the same ``configs/*.txt`` format (``key = value`` lines, bare flags,
 ``[a, b, c]`` lists, ``#`` comments) without depending on configargparse.
 Precedence: CLI > config file > default. Flags of the JAX package that the
 port does not read yet (other datasets, multi-device, evaluation modes) are
-accepted, from a config file or the command line, and ignored.
+accepted, from a config file or the command line, and ignored. The conv-path
+flags are read, with the JAX package's names, defaults and choices:
+``--key_conv {on,eval,off}`` (key-matching convs, or neighbor maps built on
+the device; datasets/batching.build_batch), ``--pallas_conv {auto,on,off}``
+(the neighbor-map convs through the CUDA kernels of sparse/pallas_conv.py;
+auto is off, as in the JAX package) and ``--host_coordinate_maps`` (neighbor
+maps built on the host). ``--key_conv_force`` (TPU window plans, which the
+port does not use) is one of the flags accepted and ignored.
 """
 
 from __future__ import annotations
@@ -133,6 +140,15 @@ def config_parser():
         choices=['bfloat16', 'float32'],
         help='dtype of conv/linear operands; accumulation is float32.')
     add('--prefetch_batches', type=int, default=2)
+    # conv path (box2mask_tpu/config.py:235-251)
+    add('--pallas_conv', type=str, default='auto',
+        choices=['auto', 'on', 'off'],
+        help='neighbor-map convs through the CUDA kernels; auto = off')
+    add('--key_conv', type=str, default='on', choices=['on', 'eval', 'off'],
+        help='key-matching convs (on), for val/test batches only (eval), or '
+             'neighbor maps built on the device (off)')
+    add('--host_coordinate_maps', default=False, action='store_true',
+        help='build the neighbor maps on the host (sparse/coords.py)')
     return p
 
 
@@ -147,7 +163,8 @@ def needs_remat(total_padded_rows, bf16_acts=False):
 
 def _apply_config_file(parser, argv):
     """Config-file values as argv-style defaults (CLI wins); keys the port
-    does not read are skipped."""
+    does not read are skipped (the conv-path keys key_conv, pallas_conv and
+    host_coordinate_maps are read: config_parser)."""
     ns, _ = parser.parse_known_args(argv)
     if not ns.config:
         return argv

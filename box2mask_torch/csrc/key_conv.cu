@@ -19,15 +19,16 @@
 // or a SENT output key contributes 0.
 //
 // Forward design. One block owns TILE_M = 64 output rows and NT output
-// channels. For each kernel offset, threads 0..63 build their row's query and
-// binary-search the scene's sorted key row (a ScanNet-scale row is 512 KB and
-// stays in the 50 MB L2); a block vote skips offsets no row of the tile
-// matched (the GPU form of the TPU kernel's count == 0 skip, :167-170). The
-// matched bf16 rows are gathered into shared memory (0 for a miss) together
-// with the w[k] slice, and four warps multiply them on the tensor cores (wmma
-// 16x16x16, bf16 in, f32 accumulate in registers). The TPU's one-hot gather
-// matmul, 128-lane windows, host window plans and DMA double buffering have
-// no part here: the search replaces the window plans.
+// channels (the tile of csrc/conv_tile.cuh, shared with the neighbor-map conv
+// of csrc/nmap_conv.cu). For each kernel offset, threads 0..63 build their
+// row's query and binary-search the scene's sorted key row (a ScanNet-scale
+// row is 512 KB and stays in the 50 MB L2); a block vote skips offsets no row
+// of the tile matched (the GPU form of the TPU kernel's count == 0 skip,
+// :167-170). The matched bf16 rows are gathered into shared memory (0 for a
+// miss) together with the w[k] slice, and four warps multiply them on the
+// tensor cores (wmma 16x16x16, bf16 in, f32 accumulate in registers). The
+// TPU's one-hot gather matmul, 128-lane windows, host window plans and DMA
+// double buffering have no part here: the search replaces the window plans.
 //
 // Weight-gradient design. The TPU kernel carries one (K, cin, cout) sum
 // through its sequential grid; here blocks run in parallel. Pass 0 searches
@@ -59,15 +60,19 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "conv_tile.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
+using conv_tile::TILE_M;
+using conv_tile::THREADS;
+using conv_tile::gather_tile;
+
 constexpr int kSentKey = 1 << 30;
 constexpr int kAxisBits = 10;
 constexpr int kAxisMax = 1 << kAxisBits;
-constexpr int TILE_M = 64;
-constexpr int THREADS = 128;   // 4 warps x 16 output rows
 
 struct Geom {
   int B, pad_in, pad_out, cin, cout;
@@ -77,11 +82,6 @@ struct Geom {
   int scale;   // 2^level
   int guard;   // mask axis wraps of the unpacked fields
 };
-
-__device__ __forceinline__ float to_out(float v, float*) { return v; }
-__device__ __forceinline__ __nv_bfloat16 to_out(float v, __nv_bfloat16*) {
-  return __float2bfloat16_rn(v);
-}
 
 // first position p in keys[0, n) with keys[p] >= q
 __device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int n,
@@ -121,34 +121,8 @@ __device__ __forceinline__ int match(const Geom& g,
   return (p < g.pad_in && __ldg(krow + p) == q) ? b * g.pad_in + p : -1;
 }
 
-// TILE_M gathered rows of x, channels c0 .. c0 + KC, into xs (row stride
-// LDX) as bf16; 0 for a row whose src is -1 and for channels >= cin. NTHR:
-// the block's thread count.
-template <int KC, int LDX, int NTHR = THREADS>
-__device__ __forceinline__ void gather_rows(const __nv_bfloat16* __restrict__ x,
-                                            const int* src, int cin, int c0,
-                                            __nv_bfloat16* xs) {
-  constexpr int XV = KC / 8;      // 16-byte vectors per gathered row chunk
-  const bool vec_x = (cin % 8) == 0;
-  for (int i = threadIdx.x; i < TILE_M * XV; i += NTHR) {
-    const int r = i / XV, v = i % XV, c = c0 + v * 8, s = src[r];
-    union { uint4 u; unsigned short h[8]; } val;   // 8 bf16 bit patterns
-    val.u = make_uint4(0, 0, 0, 0);
-    if (s >= 0) {
-      const __nv_bfloat16* p = x + (size_t)s * cin + c;
-      if (vec_x) {
-        if (c < cin) val.u = __ldg(reinterpret_cast<const uint4*>(p));
-      } else {
-        const unsigned short* ph = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (c + e < cin) val.h[e] = ph[e];
-      }
-    }
-    *reinterpret_cast<uint4*>(xs + r * LDX + v * 8) = val.u;
-  }
-}
-
+// The forward: one block per 64-row, NT-channel output tile
+// (csrc/conv_tile.cuh), each row's matches found by binary search.
 template <int NT, int KC, typename OutT>
 __global__ void __launch_bounds__(THREADS)
 key_conv_kernel(const __nv_bfloat16* __restrict__ x,
@@ -156,81 +130,16 @@ key_conv_kernel(const __nv_bfloat16* __restrict__ x,
                 const int* __restrict__ keys_out,
                 const __nv_bfloat16* __restrict__ w,
                 OutT* __restrict__ out, Geom g) {
-  constexpr int NF = NT / 16;     // accumulator fragments per warp
-  constexpr int LDX = KC + 8;     // padded smem strides (16-byte multiples)
-  constexpr int LDW = NT + 8;
-  constexpr int WV = NT / 8;
-  __shared__ __align__(32) __nv_bfloat16 xs[TILE_M * LDX];
-  __shared__ __align__(32) __nv_bfloat16 ws[KC * LDW];
-  __shared__ __align__(32) float stage[THREADS / 32][16 * 16];
-  __shared__ int src[TILE_M];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_out = g.B * g.pad_out;
-  const int row0 = blockIdx.x * TILE_M;
-  const int n0 = blockIdx.y * NT;
-
+  const int row = blockIdx.x * TILE_M + threadIdx.x;
   int key = kSentKey, b = 0;
-  if (tid < TILE_M && row0 + tid < n_out) {
-    key = keys_out[row0 + tid];
-    b = (row0 + tid) / g.pad_out;
+  if (threadIdx.x < TILE_M && row < n_out) {
+    key = keys_out[row];
+    b = row / g.pad_out;
   }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  const int K = g.ks * g.ks * g.ks;
-  for (int k = 0; k < K; ++k) {
-    const int hit = tid < TILE_M ? match(g, keys_in, key, b, k) : -1;
-    __syncthreads();                  // last offset's readers of smem done
-    if (tid < TILE_M) src[tid] = hit;
-    if (!__syncthreads_or(hit >= 0)) continue;
-
-    for (int c0 = 0; c0 < g.cin; c0 += KC) {
-      if (c0 > 0) __syncthreads();
-      gather_rows<KC, LDX>(x, src, g.cin, c0, xs);
-      const __nv_bfloat16* wk = w + (size_t)k * g.cin * g.cout + n0;
-      for (int i = tid; i < KC * WV; i += THREADS) {
-        const int r = i / WV, v = i % WV, c = c0 + r;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (c < g.cin)
-          val = __ldg(reinterpret_cast<const uint4*>(wk + (size_t)c * g.cout +
-                                                     v * 8));
-        *reinterpret_cast<uint4*>(ws + r * LDW + v * 8) = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, xs + warp * 16 * LDX + kk, LDX);
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, ws + kk * LDW + j * 16, LDW);
-          wmma::mma_sync(acc[j], a, bf, acc[j]);
-        }
-      }
-    }
-  }
-
-  // epilogue: each warp stages one 16x16 fragment at a time and writes it
-  // out in the output dtype (f32, or bf16 rounded to nearest even)
-  float* st = stage[warp];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(st, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = row0 + warp * 16 + e / 16;
-      if (r < n_out)
-        out[(size_t)r * g.cout + n0 + j * 16 + e % 16] =
-            to_out(st[e], (OutT*)nullptr);
-    }
-    __syncwarp();
-  }
+  conv_tile::conv_tile<NT, KC>(
+      x, w, out, n_out, g.cin, g.cout, g.ks * g.ks * g.ks,
+      [&](int k) { return match(g, keys_in, key, b, k); });
 }
 
 template <int NT, int KC, typename OutT>
@@ -314,7 +223,7 @@ key_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
     if (tid < TILE_M) src[tid] = hit;
     if (!__syncthreads_or(hit >= 0)) continue;
 
-    gather_rows<CI, LDX, NTHR>(x, src, g.cin, c0, xs);
+    gather_tile<CI, LDX, NTHR>(x, src, g.cin, c0, xs);
     // the tile's g rows, zero where the row matched nothing (a padding row's
     // g never reaches dw, even where it is not finite)
     for (int i = tid; i < TILE_M * GV; i += NTHR) {
@@ -408,7 +317,7 @@ key_conv_stem_dw_kernel(const __nv_bfloat16* __restrict__ x,
       __syncthreads();                // last offset's readers of xs done
       if (tid < TILE_M) src[tid] = hit;
       if (!__syncthreads_or(hit >= 0)) continue;
-      gather_rows<16, LDX>(x, src, g.cin, 0, xs);
+      gather_tile<16, LDX>(x, src, g.cin, 0, xs);
       __syncthreads();
       if (warp < g.cout / 16) {
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;

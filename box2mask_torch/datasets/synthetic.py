@@ -155,10 +155,12 @@ def derive_labels(positions, semantics, instances, segments):
     }
 
 
-def scannet_scale_batches(cfg, n_batches, batch_size=4, seed0=1000):
+def scannet_scale_batches(cfg, n_batches, batch_size=4, seed0=1000,
+                          mode='test'):
     """Batches of unique ScanNet-val-scale synthetic scenes (~120k voxels at
     2 cm; the recipe of the JAX package's bench.py), built with the port's
-    host code. Returns a list of (dev, host) from datasets/batching."""
+    host code in `mode` (which, under --key_conv eval, picks the conv path).
+    Returns a list of (dev, host) from datasets/batching."""
     from box2mask_torch.datasets import batching, voxelize
     out = []
     for b in range(n_batches):
@@ -169,5 +171,5 @@ def scannet_scale_batches(cfg, n_batches, batch_size=4, seed0=1000):
                 points_per_instance=4000, floor_points=45000,
                 wall_points=35000, segs_per_instance=6)
             rets.append(voxelize.voxelize_scene(scene, cfg))
-        out.append(batching.build_batch(rets, cfg))
+        out.append(batching.build_batch(rets, cfg, mode=mode))
     return out

@@ -80,6 +80,11 @@ class FusedInferencePipeline:
                                 device=self.device)
         pending = collections.deque()
         for dev_np, host in batches:
+            if 'keys0_b' not in dev_np and len(host['scene']) != 1:
+                raise ValueError(
+                    'a host-maps batch (coords beyond the key packing range, '
+                    'or --host_coordinate_maps) holds one scene: batch size '
+                    '1, or a larger --voxel_size')
             self.n_scenes += len(host['scene'])
             pred, full, out = self.infer(upload(dev_np, self.device), ths_t)
             fut = self._harvester.submit(self._harvest, pred, full, out,

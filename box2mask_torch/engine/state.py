@@ -1,5 +1,5 @@
 """Model construction, the train state and the step functions (port of
-box2mask_tpu/engine/state.py:30-60 ensure_maps, :73 make_optimizer, :88
+box2mask_tpu/engine/state.py:30-70 ensure_maps, :73 make_optimizer, :88
 build_model, :127 init_state, :134 make_train_step, :160 make_val_step,
 :169 make_forward, :179 head_weights).
 
@@ -19,23 +19,41 @@ import dataclasses
 import torch
 
 from box2mask_torch.convert import kaiming_init_
+from box2mask_torch.datasets.batching import DEVICE_NMAPS
 from box2mask_torch.engine.optim import Optimizer
 from box2mask_torch.nn.losses import compute_losses
 from box2mask_torch.nn.unet import SelectionNet
 from box2mask_torch.runtime import resolve_device
+from box2mask_torch.sparse import device_maps as DM
 from box2mask_torch.sparse.keys import NUM_LEVELS, SENT_KEY
 
 DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
 
+def is_nmap_batch(batch):
+    """True when the batch's convs run over neighbor maps: maps built on the
+    device (--key_conv off, or eval in mode 'train') or on the host (the
+    host-maps layout, which carries no key pyramid)."""
+    return DEVICE_NMAPS in batch or 'keys0_b' not in batch
+
+
 def ensure_maps(batch):
-    """Per-level valid masks and counts derived from the key pyramid; the
-    key-matching convs need nothing else. Batch-provided entries win."""
-    maps = {}
-    for l in range(NUM_LEVELS):
-        v = batch[f'keys{l}_b'].reshape(-1) < SENT_KEY
-        maps[f'valid{l}'] = v
-        maps[f'num{l}'] = v.sum().to(torch.int32)
+    """The per-level arrays the forward reads beside the batch. A host-maps
+    batch carries them all. A neighbor-map batch gets every conv's map built
+    on its device (sparse/device_maps.build_batch_maps_from_keys); a
+    key-matching batch gets the per-level valid masks and counts, all its
+    convs need. Batch-provided entries win (valid0, batch0, num0)."""
+    if 'keys0_b' not in batch:
+        return batch
+    if DEVICE_NMAPS in batch:
+        maps = DM.build_batch_maps_from_keys(
+            tuple(batch[f'keys{l}_b'] for l in range(NUM_LEVELS)))
+    else:
+        maps = {}
+        for l in range(NUM_LEVELS):
+            v = batch[f'keys{l}_b'].reshape(-1) < SENT_KEY
+            maps[f'valid{l}'] = v
+            maps[f'num{l}'] = v.sum().to(torch.int32)
     maps.update(batch)
     return maps
 
@@ -54,6 +72,8 @@ def build_model(cfg, num_classes, device=None):
         mlp_bounds_relu=cfg.mlp_bounds_relu,
         compute_dtype=DTYPES[cfg.compute_dtype],
         act_dtype=torch.bfloat16 if cfg.bf16_acts else torch.float32,
+        # auto == off, as in the JAX package (engine/state.py:98-100)
+        use_pallas=cfg.pallas_conv == 'on',
         remat=cfg.remat, remat_max_level=cfg.remat_levels)
     model.eval()
     return model.to(resolve_device(device))
@@ -96,7 +116,13 @@ def init_state(cfg, model, tx, seed=0):
 
 
 def forward_losses(cfg, state, batch, bb_w, cs_w):
-    """Train-mode forward and the loss dict (BN running statistics move)."""
+    """Train-mode forward and the loss dict (BN running statistics move).
+    Training runs on key-matching batches only."""
+    if is_nmap_batch(batch):
+        raise NotImplementedError(
+            'training on the neighbor-map path (--key_conv off or eval in '
+            "mode 'train', --host_coordinate_maps, scenes past 1024 voxels "
+            'per axis) is not ported yet: ROADMAP A18')
     model = state.model
     model.train()
     full = ensure_maps(batch)

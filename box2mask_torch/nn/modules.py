@@ -1,5 +1,6 @@
 """Building blocks of the sparse U-Net: sparse convs, masked batch norm,
-residual blocks (port of box2mask_tpu/nn/modules.py:20-182).
+residual blocks (port of box2mask_tpu/nn/modules.py:20-182; the convs take
+a key operand or a neighbor map, as sparse/ops.py dispatches).
 
 Parameters keep the flax layouts and names, so a flax tree copies across by
 path (convert.from_flax): conv kernels are (K, Cin, Cout) in the x-major
@@ -19,28 +20,40 @@ from box2mask_torch.sparse import ops
 
 
 class SparseConv(nn.Module):
-    """Sparse conv over a key operand (sparse/ops.conv_operand)."""
+    """Sparse conv over a key operand or a neighbor map
+    (sparse/ops.conv_operand). `compute_dtype` and `use_pallas` steer the
+    neighbor-map convs (sparse/ops.gather_conv); the key-matching convs
+    always round their operands to bf16."""
 
     def __init__(self, cin, features, kernel_volume,
+                 compute_dtype=torch.bfloat16, use_pallas=False,
                  act_dtype=torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(kernel_volume, cin, features))
+        self.compute_dtype = compute_dtype
+        self.use_pallas = use_pallas
         self.act_dtype = act_dtype
 
     def forward(self, x, op):
-        return ops.gather_conv(x, op, self.kernel).to(self.act_dtype)
+        return ops.gather_conv(x, op, self.kernel, self.compute_dtype,
+                               self.use_pallas).to(self.act_dtype)
 
 
 class SparseConvTranspose(nn.Module):
-    """Stride-2 transpose conv (level l+1 -> l) over an up operand."""
+    """Stride-2 transpose conv (level l+1 -> l) over an up operand or a
+    (parent, widx) pair (sparse/ops.up_operand)."""
 
-    def __init__(self, cin, features, act_dtype=torch.float32):
+    def __init__(self, cin, features, compute_dtype=torch.bfloat16,
+                 use_pallas=False, act_dtype=torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(8, cin, features))
+        self.compute_dtype = compute_dtype
+        self.use_pallas = use_pallas
         self.act_dtype = act_dtype
 
     def forward(self, x_coarse, op):
-        return ops.up_conv(x_coarse, op, self.kernel).to(self.act_dtype)
+        return ops.up_conv(x_coarse, op, self.kernel, self.compute_dtype,
+                           self.use_pallas).to(self.act_dtype)
 
 
 class Linear1x1(nn.Module):
@@ -97,12 +110,14 @@ class BasicBlock(nn.Module):
     + ReLU."""
 
     def __init__(self, cin, features, compute_dtype=torch.bfloat16,
-                 act_dtype=torch.float32):
+                 use_pallas=False, act_dtype=torch.float32):
         super().__init__()
         ad = act_dtype
-        self.SparseConv_0 = SparseConv(cin, features, 27, act_dtype=ad)
+        conv = dict(compute_dtype=compute_dtype, use_pallas=use_pallas,
+                    act_dtype=ad)
+        self.SparseConv_0 = SparseConv(cin, features, 27, **conv)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, act_dtype=ad)
-        self.SparseConv_1 = SparseConv(features, features, 27, act_dtype=ad)
+        self.SparseConv_1 = SparseConv(features, features, 27, **conv)
         self.MaskedBatchNorm_1 = MaskedBatchNorm(features, act_dtype=ad)
         if cin != features:
             self.downsample_conv = Linear1x1(cin, features, use_bias=False,

@@ -11,7 +11,12 @@ parameter names).
   * head MLPs (Linear-ReLU-BN x2 + Linear) per configured head.
 
 The forward consumes the batch dict of datasets/batching.py after
-engine/state.ensure_maps (per-level keys, valid masks and counts). In
+engine/state.ensure_maps: per-level valid masks and counts, and either the
+key pyramid (key-matching convs) or the neighbor maps (`nmap3_{l}`,
+`nmap5_0`, `down{l}`, `up_parent{l}`, `up_widx{l}`; the JAX package's
+conv_operand choice, unet.py:102-128, :184-188), which sparse/ops.py
+dispatches on; `use_pallas` sends the neighbor-map convs through the CUDA
+kernels of sparse/pallas_conv.py. In
 training mode BN normalizes with batch moments and moves its running
 statistics; with `remat`, the BasicBlocks of levels <= `remat_max_level`
 are rematerialized in the backward (torch.utils.checkpoint, the JAX
@@ -84,11 +89,12 @@ class SelectionNet(nn.Module):
                  layers=2, do_segment_pooling=True, max_pool_segments=False,
                  mlp_bounds_relu=False, stem_kernel=5,
                  compute_dtype=torch.bfloat16, act_dtype=torch.float32,
-                 remat=False, remat_max_level=7):
+                 use_pallas=False, remat=False, remat_max_level=7):
         super().__init__()
         if layers < 1:
             raise ValueError(f'layers must be >= 1, got {layers}')
         cd, ad = compute_dtype, act_dtype
+        conv = dict(compute_dtype=cd, use_pallas=use_pallas, act_dtype=ad)
         self.heads = tuple(heads)
         self.layers = layers
         self.do_segment_pooling = do_segment_pooling
@@ -101,16 +107,15 @@ class SelectionNet(nn.Module):
         def blocks(stage, cin, planes):
             for i in range(layers):
                 self.add_module(f'{stage}_block{i}', BasicBlock(
-                    cin if i == 0 else planes, planes, compute_dtype=cd,
-                    act_dtype=ad))
+                    cin if i == 0 else planes, planes, **conv))
 
         self.stem_conv = SparseConv(in_channels, INIT_DIM, stem_kernel ** 3,
-                                    act_dtype=ad)
+                                    **conv)
         self.stem_bn = MaskedBatchNorm(INIT_DIM, act_dtype=ad)
         skip_ch = [INIT_DIM]
         c = INIT_DIM
         for l in range(1, 8):
-            self.add_module(f'down{l}_conv', SparseConv(c, c, 8, act_dtype=ad))
+            self.add_module(f'down{l}_conv', SparseConv(c, c, 8, **conv))
             self.add_module(f'down{l}_bn', MaskedBatchNorm(c, act_dtype=ad))
             blocks(f'enc{l}', c, ENC_PLANES[l - 1])
             c = ENC_PLANES[l - 1]
@@ -118,7 +123,7 @@ class SelectionNet(nn.Module):
         for i, l in enumerate(range(6, -1, -1)):
             planes = DEC_PLANES[i]
             self.add_module(f'up{l}_tr', SparseConvTranspose(c, planes,
-                                                             act_dtype=ad))
+                                                             **conv))
             self.add_module(f'up{l}_bn', MaskedBatchNorm(planes, act_dtype=ad))
             blocks(f'dec{l}', planes + skip_ch[l], planes)
             c = planes

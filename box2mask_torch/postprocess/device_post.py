@@ -1,7 +1,7 @@
 """On-device detection -> masks post-processing, and the host unpack (port of
 box2mask_tpu/postprocess/device_post.py: _pack_bits :44, _make_core :57,
 make_device_postproc :166, make_fused_infer's per-scene packing :229-251,
-host unpack :264-411).
+host unpack :264-411, both batch layouts as at :228 and :394-398).
 
 Per scene:
   1. votes -> [sigmoid(score), min, max] boxes (min_bb clamp),
@@ -139,8 +139,10 @@ def make_device_postproc(cfg, valid_class_ids, is_foreground, max_masks=256):
 
 def fused_postproc(core, cfg, pred, batch, ths, top_k):
     """Every scene of the batch through `core` on its own voxel window, the
-    best `top_k` rows packed, stacked into one dict of (B, ...) tensors."""
-    B = batch['keys0_b'].shape[0]
+    best `top_k` rows packed, stacked into one dict of (B, ...) tensors. A
+    host-maps batch (no key pyramid) holds one scene (JAX
+    device_post.py:228)."""
+    B = batch['keys0_b'].shape[0] if 'keys0_b' in batch else 1
     vs = batch['valid0'].shape[0] // B
     outs = []
     for b in range(B):
@@ -230,7 +232,10 @@ def device_masks_to_results(out, host, valid_class_ids, scene_idx):
     out = {k: v.cpu().numpy() for k, v in out.items()}
     n = int(out['n_keep'])
     _warn_cap(host, scene_idx, out['cluster_cap_hit'])
-    start = scene_idx * host['interleaved_vs']
+    if 'interleaved_vs' in host:                 # key-pyramid layout
+        start = scene_idx * host['interleaved_vs']
+    else:                                        # host maps: tail-padded
+        start = int(np.sum(host['num_voxels'][:scene_idx]))
     masks = _unpack(out['masks_packed'], n, start,
                     start + host['num_voxels'][scene_idx])
     masks = masks[:, np.asarray(host['vox2point'][scene_idx])]

@@ -2,14 +2,16 @@
 plain C interface, loaded with ctypes.
 
 Each `csrc/*.cu` source builds into `box2mask_torch/build/` under a name that
-carries a hash of its source, at first use; every source compiles in its own
-nvcc process, all started together. Nothing here runs at import time: the CPU
-tests import every module of the package on hosts without nvcc.
+carries a hash of its source and of the shared headers (`csrc/*.cuh`), at
+first use; every source compiles in its own nvcc process, all started
+together. Nothing here runs at import time: the CPU tests import every
+module of the package on hosts without nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -33,6 +35,10 @@ SIGNATURES = {
         'b2m_key_conv_dw': [_P] * 7 + [_I] * 11 + [_P],
         'b2m_key_conv_stem_dw': [_P] * 6 + [_I] * 5 + [_P],
     },
+    'nmap_conv': {
+        'b2m_nmap_conv': [_P] * 4 + [_I] * 5 + [_P],
+        'b2m_gather_rows': [_P] * 3 + [_I] * 3 + [_P],
+    },
 }
 
 _libs = {}
@@ -50,8 +56,11 @@ def _nvcc():
 
 def _target(name):
     src = os.path.join(CSRC, f'{name}.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read() + ARCH.encode()).hexdigest()[:12]
+    h = hashlib.sha1(ARCH.encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, '*.cuh'))):
+        with open(path, 'rb') as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return src, os.path.join(BUILD_DIR, f'lib{name}_{digest}.so')
 
 

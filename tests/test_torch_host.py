@@ -36,15 +36,22 @@ SCENE = dict(num_instances=5, points_per_instance=250, floor_points=900,
 @pytest.mark.parametrize('cfg_file,cli', [
     ('scannet.txt', []), ('synthetic.txt', []),
     ('scannet.txt', ['--vox_bucket', '131072', '--layers', '1',
-                     '--compute_dtype', 'float32', '--lr', '0.1'])])
+                     '--compute_dtype', 'float32', '--lr', '0.1']),
+    ('scannet.txt', ['--layers', '1', '--key_conv', 'off', '--pallas_conv',
+                     'on', '--host_coordinate_maps', '--key_conv_force'])])
 def test_get_config_matches(cfg_file, cli):
     """Every field the port's config carries (the ones the port reads) has
     the JAX package's value; the rest of the JAX flags are accepted and
-    ignored. The command line wins over the file."""
+    ignored. The command line wins over the file. The conv-path flags are
+    read, never skipped: they change the port's path as the JAX
+    package's."""
     argv = ['--config', os.path.join(ROOT, 'configs', cfg_file)] + cli
     p, j = vars(PC.get_config(argv)), vars(JC.get_config(argv))
     assert set(p) - {'config'} <= set(j)
     assert {k: v for k, v in p.items() if v != j[k]} == {}
+    conv = ('key_conv', 'pallas_conv', 'host_coordinate_maps')
+    assert [p[k] for k in conv] == (
+        ['off', 'on', True] if '--key_conv' in cli else ['on', 'auto', False])
     assert p['layers'] == (1 if cli else 2)
     assert p['network_heads'] and p['eval_ths']
     assert p['bf16_acts'] == (cfg_file == 'scannet.txt')

@@ -251,3 +251,107 @@ def test_train_function_grads_match_twins_on_card(cuda, monkeypatch, mode,
         assert_close(dx_k.float().cpu().numpy(),
                      dx_t.float().cpu().numpy(), 'bf16')
     assert_close(dw_k.cpu().numpy(), dw_t.cpu().numpy(), 'f32')
+
+
+# ---------------------------------------------- neighbor-map conv and gather
+def nmap_batch(seed=0, n=400):
+    """Neighbor maps (sparse/device_maps.py) of 2 scenes of corner-cluster
+    keys (voxels at 0 and 1023 on every axis, different counts), as built
+    on the device for a --key_conv off batch; CPU tensors."""
+    from box2mask_torch.datasets.batching import level_pads
+    from box2mask_torch.sparse import device_maps as DM
+    from box2mask_torch.sparse.keys import host_level_keys
+    rng = np.random.default_rng(seed)
+    per_scene = []
+    for b in range(2):
+        c = np.where(rng.random((n - 90 * b, 3)) < 0.5,
+                     rng.integers(0, 12, (n - 90 * b, 3)),
+                     1023 - rng.integers(0, 12, (n - 90 * b, 3)))
+        per_scene.append(host_level_keys(np.unique(c, axis=0).astype(np.int32)))
+    pads = level_pads(per_scene, PAD)
+    keys = []
+    for l, pad in enumerate(pads):
+        kb = np.full((2, pad), SENT_KEY, np.int32)
+        for i, ks in enumerate(per_scene):
+            kb[i, :len(ks[l])] = ks[l]
+        keys.append(torch.from_numpy(kb))
+    return DM.build_batch_maps_from_keys(tuple(keys)), pads
+
+
+# (map, level of x, cin, cout) at the widths of chip_smoke.py phase 8
+NMAP_WIDTHS = [('nmap5_0', 0, 6, 32), ('nmap3_0', 0, 96, 96),
+               ('nmap3_0', 0, 128, 96), ('nmap3_2', 2, 64, 64),
+               ('nmap3_3', 3, 256, 256), ('down0', 0, 32, 32),
+               ('down2', 2, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('name,level,cin,cout', NMAP_WIDTHS)
+def test_nmap_conv_kernel_matches_plain_twin_on_card(cuda, name, level, cin,
+                                                     cout, dtype):
+    """sparse_conv is f32 out on both sides from bf16-rounded operands:
+    1e-5 of max |out|; padding rows exactly 0."""
+    from box2mask_torch.sparse import pallas_conv as PCV
+    maps, pads = nmap_batch(seed=level)
+    nbr = maps[name].to(cuda)
+    rng = np.random.default_rng(cin)
+    x = torch.from_numpy(rng.normal(size=(2 * pads[level], cin)).astype(
+        np.float32)).to(cuda)
+    if dtype == 'bf16':
+        x = x.to(torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(nbr.shape[1], cin, cout))
+                          * 0.1).astype(np.float32)).to(cuda)
+    before = PCV.LAUNCHES['sparse_conv']
+    got = PCV.sparse_conv(x, nbr, w)
+    want = PCV.sparse_conv_plain(x, nbr, w)
+    torch.cuda.synchronize()
+    assert PCV.LAUNCHES['sparse_conv'] == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), 'f32')
+    pad_rows = (nbr >= x.shape[0]).all(1)
+    assert pad_rows.any() and not got[pad_rows].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('level,cout', [(0, 96), (3, 256)])
+def test_gather_rows_kernel_matches_plain_twin_on_card(cuda, level, cout):
+    """The up conv's row pick with its bf16 rounding: bit-equal."""
+    from box2mask_torch.sparse import pallas_conv as PCV
+    maps, pads = nmap_batch(seed=level)
+    U = 2 * pads[level + 1]
+    parent, widx = maps[f'up_parent{level}'], maps[f'up_widx{level}']
+    idx = torch.where(parent >= U, U * 8, parent * 8 + widx).to(cuda)
+    y = torch.from_numpy(np.random.default_rng(cout).normal(
+        size=(U * 8, cout)).astype(np.float32)).to(cuda)
+    before = PCV.LAUNCHES['gather_rows']
+    got = PCV.gather_rows(y, idx)
+    want = PCV.gather_rows_plain(y, idx)
+    torch.cuda.synchronize()
+    assert PCV.LAUNCHES['gather_rows'] == before + 1
+    assert torch.equal(got, want)
+    assert (idx == U * 8).any()
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_without_kernel_library_raises(cuda, monkeypatch,
+                                                   tmp_path):
+    """With no built library and no nvcc, a CUDA tensor raises in the
+    wrapper; it never falls back to the plain twin."""
+    from box2mask_torch.sparse import _build
+    from box2mask_torch.sparse import pallas_conv as PCV
+
+    def no_nvcc():
+        raise RuntimeError('nvcc not found')
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path))
+    monkeypatch.setattr(_build, '_libs', {})
+    monkeypatch.setattr(_build, '_nvcc', no_nvcc)
+    maps, pads = nmap_batch()
+    x = torch.ones(2 * pads[0], 32, device=cuda)
+    w = torch.ones(8, 32, 32, device=cuda)
+    plain = dict(PCV.PLAIN_CALLS)
+    with pytest.raises(RuntimeError, match='nvcc'):
+        PCV.sparse_conv(x, maps['down0'].to(cuda), w)
+    with pytest.raises(RuntimeError, match='nvcc'):
+        PCV.gather_rows(x, maps['up_parent0'].to(cuda))
+    assert PCV.PLAIN_CALLS == plain

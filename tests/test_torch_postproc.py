@@ -42,12 +42,13 @@ SCENE = dict(num_instances=5, points_per_instance=250, floor_points=900,
 VALID_IDS, _, _, IS_FG = JT.get_tables('scannet')
 
 
-def jax_batch(seeds):
+def jax_batch(seeds, device_maps=None):
     jc = JC.get_config(ARGS)
     jc.use_native_host_ops = False
     rets = [JV.voxelize_scene(JSyn.make_scene(seed=s, **SCENE)[0], jc)
             for s in seeds]
-    return JB.build_batch(rets, jc, JT.SCANNET_SEMANTIC_ID2IDX, mode='val')
+    return JB.build_batch(rets, jc, JT.SCANNET_SEMANTIC_ID2IDX, mode='val',
+                          device_maps=device_maps)
 
 
 def crisp_pred(dev, seed=0):
@@ -151,24 +152,25 @@ def test_topk_overflow_falls_back_to_full_width():
             np.testing.assert_array_equal(results[2][name][k], r[k])
 
 
-def test_pipeline_matches_jax():
-    """The port's FusedInferencePipeline (device='cpu') against the JAX
-    pipeline on the same 2 batches of 2 scenes with the same params.
+def pipelines_vs_jax(extra, seeds, jax_device_maps=None):
+    """The port's FusedInferencePipeline (device='cpu', ARGS + extra)
+    against the JAX pipeline on the same batches of scenes `seeds`, with the
+    same params, top_k 16 and max_masks 64: per scene the same masks,
+    labels and mask count, conf within 1e-5. Returns [(port results,
+    out_np, host)] per batch and the number of masks.
 
     The last layer of each head is scaled to 1e-3 of its init (and given
     fixed biases), so the feature-dependent part of every vote moves a box
     by about a millimetre: the ~0.5% forward difference from bf16 rounding
     (test_torch_forward) then stays clear of the IoU and score thresholds,
-    and every decision must come out the same. top_k = 16 below the kept
-    counts also drives the full-width fallback."""
+    and every decision must come out the same."""
     jc = JC.get_config(ARGS)
     jc.use_native_host_ops = False
-    pc = PC.get_config(ARGS)
-    seeds = [(3, 4), (5, 6)]
-    jbatches = [jax_batch(s) for s in seeds]
+    pc = PC.get_config(ARGS + extra)
+    jbatches = [jax_batch(s, jax_device_maps) for s in seeds]
     pbatches = [PB.build_batch(
         [PV.voxelize_scene(PSyn.make_scene(seed=x, **SCENE)[0], pc)
-         for x in s], pc) for s in seeds]
+         for x in s], pc, mode='val') for s in seeds]
     model = JS.build_model(jc, 20)
     v = JS.init_variables(model, {k: jnp.asarray(a)
                                   for k, a in jbatches[0][0].items()})
@@ -191,11 +193,10 @@ def test_pipeline_matches_jax():
         pipe = FusedInferencePipeline(pc, VALID_IDS, IS_FG, top_k=16,
                                       max_masks=64, device='cpu')
         out = list(pipe.run(from_flax(params, stats), pbatches, pc.eval_ths))
-    assert pipe.n_scenes == 4
+    assert pipe.n_scenes == sum(len(s) for s in seeds)
     n_masks = 0
     for (pres, out_np, _, host), jr in zip(out, jres):
         assert list(pres) == list(jr) == [s['name'] for s in host['scene']]
-        assert out_np['topk_overflow'].any()
         for name, want in jr.items():
             got = pres[name]
             assert len(got['conf']) == len(want['conf'])
@@ -204,4 +205,14 @@ def test_pipeline_matches_jax():
             np.testing.assert_allclose(got['conf'], want['conf'], rtol=0,
                                        atol=1e-5)
             n_masks += len(want['conf'])
+    return [(pres, out_np, host) for pres, out_np, _, host in out], n_masks
+
+
+def test_pipeline_matches_jax():
+    """The port's pipeline on its key-matching path against the JAX
+    pipeline on the same 2 batches of 2 scenes (pipelines_vs_jax). top_k =
+    16 below the kept counts also drives the full-width fallback."""
+    out, n_masks = pipelines_vs_jax([], [(3, 4), (5, 6)])
+    for _, out_np, _ in out:
+        assert out_np['topk_overflow'].any()
     assert n_masks > 20
