@@ -4,8 +4,7 @@
 // Replaces the four Pallas TPU kernels of box2mask_tpu/sparse/key_conv.py:
 //   * _kernel (:116, via key_conv :277): 3^3 same-level conv (guarded),
 //     2^3 stride-2 down conv (stride_child), transpose up conv (stride_parent);
-//   * _stem_kernel (:542, via key_conv_stem :637): the 5^3 stem, cin <= 8,
-//     always f32 out;
+//   * _stem_kernel (:542, via key_conv_stem :637): the 5^3 stem, f32 out;
 //   * _dw_kernel (:814, via key_conv_dw :934): the weight gradient of the
 //     three _kernel modes;
 //   * _stem_dw_kernel (:557, via key_conv_stem_dw :678): the stem's weight
@@ -18,42 +17,43 @@
 // own sorted key row keys_in[b, :]; a missing neighbour, a guarded axis wrap
 // or a SENT output key contributes 0.
 //
-// Forward design. One block owns TILE_M = 64 output rows and NT output
-// channels (the tile of csrc/conv_tile.cuh, shared with the neighbor-map conv
-// of csrc/nmap_conv.cu). For each kernel offset, threads 0..63 build their
-// row's query and binary-search the scene's sorted key row (a ScanNet-scale
-// row is 512 KB and stays in the 50 MB L2); a block vote skips offsets no row
-// of the tile matched (the GPU form of the TPU kernel's count == 0 skip,
-// :167-170). The matched bf16 rows are gathered into shared memory (0 for a
-// miss) together with the w[k] slice, and four warps multiply them on the
-// tensor cores (wmma 16x16x16, bf16 in, f32 accumulate in registers). The
-// TPU's one-hot gather matmul, 128-lane windows, host window plans and DMA
-// double buffering have no part here: the search replaces the window plans.
+// Bound on the H100: at the main path's shapes the matched pairs' FLOPs
+// (2 * hits * cin * cout) are far under the 989 TFLOP/s bf16 peak, so the
+// bound is the bytes (x and g read once, out or dw written once, keys, w)
+// over 3.35 TB/s. What holds a gather-GEMM conv far from it on this card is
+// less the key search (a neighbor-map read in its place, csrc/nmap_conv.cu,
+// runs the same tile) than a serial chain per offset: match, vote,
+// blocking gather, blocking w load, barrier, a few tensor-core steps, with
+// nothing in flight meanwhile; the tile of csrc/conv_tile.cuh breaks it.
+//
+// Forward design: the tile of csrc/conv_tile.cuh (matches for all offsets
+// up front, the live-offset list, a cp.async / bulk-copy ring, wgmma, 16-byte
+// epilogue stores; M = 128 rows). Here its matches come from a branchless
+// binary search of the scene's sorted key row (pad_in keys; a ScanNet-scale
+// row is 512 KB and stays in the 50 MB L2), sixteen independent searches per
+// thread in lockstep so that their loads are in flight together. The TPU's
+// one-hot gather matmul, 128-lane windows and host window plans have no
+// part here.
 //
 // Weight-gradient design. The TPU kernel carries one (K, cin, cout) sum
 // through its sequential grid; here blocks run in parallel. Pass 0 searches
-// every (offset, output row) pair at once into an int32 match table, so a
-// tile's matches are one coalesced load and not a chain of dependent
-// searches. Pass 1: a block owns one offset k, a CI x NT slab of dw[k]
-// (CI = 64 input channels up to cin 64, else 128) and a fixed slice of the
-// row tiles (tiles s, s + S, s + 2S, ...); per tile it gathers the matched x
-// rows and the tile's g rows (both bf16, zero where the row matched nothing)
-// and accumulates x^T g on the tensor cores in registers, then writes its
-// slab to partials[s]. Pass 2 adds the S partials in slice order. No atomics:
-// the result is the same bit for bit from run to run. The stem's dw (K = 125,
-// cin <= 8, cout <= 32) keeps a block's whole (25 offsets, cin, cout) share
-// of dw in shared memory instead, so each g tile is loaded once per 25
-// offsets rather than once per offset, and feeds the same pass 2.
-//
-// Bound on the H100: at the main path's shapes the work is small
-// (2 * hits * cin * cout FLOPs, far under the 989 TFLOP/s bf16 peak), so the
-// bound is the bytes (x and g read once, out or dw written once, keys and w)
-// over 3.35 TB/s. The forward spends its time on the dependent L2 loads of
-// the per-row binary search (~17 per offset at pad 131072); the dw kernel,
-// with its searches moved to the table, on the per-tile chain of table load,
-// gather and products, and on re-reading each g tile once per offset.
-// wgmma, TMA, software pipelining and one table shared by a level's forward,
-// dx and dw launches are work for a later version.
+// every (offset, output row) pair at once into an int32 match table. Pass 1:
+// a block owns (row slice, group of G offsets, CI input channels, NT output
+// channels) and walks its row tiles (64 rows; tiles s, s + S, ...) through a
+// ring of 2-4 stages: per tile one g tile and the G matched x tiles arrive by
+// cp.async (zeros for a miss, and for g rows no offset of the group matched)
+// while the previous tile is multiplied, and the tile's table rows arrive by
+// cp.async one ring turn ahead of the gathers that need them. Each staged g
+// tile serves G offsets. The 8 warps share the (offset, 16 input channels,
+// NB output channels) units of the group; x^T g runs as mma.sync m16n8k16
+// with both operands loaded by ldmatrix.trans, f32 accumulators in
+// registers; a unit whose offset matched no row of the tile is skipped.
+// Each block writes its slab to partials[s]; pass 2 adds the S partials in
+// slice order. S is one wave of blocks (the occupancy API's count), which
+// keeps the partials small. No atomics: the result is the same bit for bit
+// from run to run. The stem's dw (K = 125, cin <= 8, cout <= 32) keeps its
+// first design: a block's whole (25 offsets, cin, cout) share of dw in
+// shared memory, so each g tile is loaded once per 25 offsets.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,14 +61,11 @@
 #include <stdint.h>
 
 #include "conv_tile.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
 namespace {
-
-using conv_tile::TILE_M;
-using conv_tile::THREADS;
-using conv_tile::gather_tile;
 
 constexpr int kSentKey = 1 << 30;
 constexpr int kAxisBits = 10;
@@ -83,24 +80,11 @@ struct Geom {
   int guard;   // mask axis wraps of the unpacked fields
 };
 
-// first position p in keys[0, n) with keys[p] >= q
-__device__ __forceinline__ int lower_bound(const int* __restrict__ keys, int n,
-                                           int q) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(keys + mid) < q) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// Row of keys_in matched by output key `key` of scene b at offset k (x-major
-// over ks^3, fields lo.. lo+ks-1 times scale), or -1. Packed deltas are
-// arithmetic sums (negative fields borrow); the transpose conv's queries go
-// negative at scene borders and match nothing.
-__device__ __forceinline__ int match(const Geom& g,
-                                     const int* __restrict__ keys_in, int key,
-                                     int b, int k) {
+// The key searched for output key `key` at offset k (x-major over ks^3,
+// fields lo .. lo+ks-1 times scale), or -1 when nothing can match. Packed
+// deltas are arithmetic sums (negative fields borrow); the transpose conv's
+// queries go negative at scene borders and match nothing.
+__device__ __forceinline__ int query(const Geom& g, int key, int k) {
   if (key >= kSentKey) return -1;
   const int sx = (k / (g.ks * g.ks) + g.lo) * g.scale;
   const int sy = ((k / g.ks) % g.ks + g.lo) * g.scale;
@@ -115,193 +99,469 @@ __device__ __forceinline__ int match(const Geom& g,
   }
   const int q = key + g.sign * (sx * (1 << (2 * kAxisBits)) +
                                 sy * (1 << kAxisBits) + sz);
-  if (q < 0) return -1;
-  const int* krow = keys_in + (size_t)b * g.pad_in;
-  const int p = lower_bound(krow, g.pad_in, q);
-  return (p < g.pad_in && __ldg(krow + p) == q) ? b * g.pad_in + p : -1;
+  return q < 0 ? -1 : q;
 }
 
-// The forward: one block per 64-row, NT-channel output tile
-// (csrc/conv_tile.cuh), each row's matches found by binary search.
-template <int NT, int KC, typename OutT>
-__global__ void __launch_bounds__(THREADS)
+// Row of keys_in matched by output key `key` of scene b at offset k, or -1.
+__device__ __forceinline__ int match(const Geom& g,
+                                     const int* __restrict__ keys_in, int key,
+                                     int b, int k) {
+  const int q = query(g, key, k);
+  if (q < 0) return -1;
+  const int* krow = keys_in + (size_t)b * g.pad_in;
+  int lo = 0, hi = g.pad_in;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(krow + mid) < q) lo = mid + 1; else hi = mid;
+  }
+  return (lo < g.pad_in && __ldg(krow + lo) == q) ? b * g.pad_in + lo : -1;
+}
+
+// ---------------------------------------------------------------- forward
+// The tile's matches: its keys into aux, then every (offset, row) pair by a
+// branchless lower bound over the scene's key row, NS searches per thread
+// in lockstep so that their loads are in flight together.
+struct KeyMatches {
+  Geom g;
+  const int* __restrict__ keys_in;
+  const int* __restrict__ keys_out;
+  int row0, n_out, K;
+
+  __device__ __forceinline__ void operator()(int* mt, int* aux) const {
+    using conv_tile::M;
+    using conv_tile::MS;
+    constexpr int NTHR = conv_tile::THREADS, NS = 16;
+    for (int r = threadIdx.x; r < M; r += NTHR)
+      aux[r] = row0 + r < n_out ? __ldg(keys_out + row0 + r) : kSentKey;
+    __syncthreads();
+    const int total = K * M;
+    for (int i0 = threadIdx.x; i0 < total; i0 += NTHR * NS) {
+      int q[NS], base[NS];
+      const int* kr[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int i = i0 + j * NTHR;
+        q[j] = -1;
+        base[j] = 0;
+        kr[j] = keys_in;
+        if (i < total) {
+          const int r = i % M;
+          const int b = min(row0 + r, n_out - 1) / g.pad_out;
+          q[j] = query(g, aux[r], i / M);
+          kr[j] = keys_in + (size_t)b * g.pad_in;
+        }
+      }
+      for (int len = g.pad_in; len > 1;) {
+        const int half = len >> 1;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          if (q[j] >= 0 && __ldg(kr[j] + base[j] + half) < q[j])
+            base[j] += half;
+        len -= half;
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int i = i0 + j * NTHR;
+        if (i >= total) continue;
+        int hit = -1;
+        if (q[j] >= 0) {
+          const int p = base[j] + (__ldg(kr[j] + base[j]) < q[j]);
+          if (p < g.pad_in && __ldg(kr[j] + p) == q[j])
+            hit = (int)(kr[j] - keys_in) + p;
+        }
+        mt[(i / M) * MS + i % M] = hit;
+      }
+    }
+  }
+};
+
+template <int NT, typename OutT>
+__global__ void __launch_bounds__(conv_tile::THREADS)
 key_conv_kernel(const __nv_bfloat16* __restrict__ x,
                 const int* __restrict__ keys_in,
                 const int* __restrict__ keys_out,
-                const __nv_bfloat16* __restrict__ w,
-                OutT* __restrict__ out, Geom g) {
-  const int n_out = g.B * g.pad_out;
-  const int row = blockIdx.x * TILE_M + threadIdx.x;
-  int key = kSentKey, b = 0;
-  if (threadIdx.x < TILE_M && row < n_out) {
-    key = keys_out[row];
-    b = row / g.pad_out;
-  }
-  conv_tile::conv_tile<NT, KC>(
-      x, w, out, n_out, g.cin, g.cout, g.ks * g.ks * g.ks,
-      [&](int k) { return match(g, keys_in, key, b, k); });
+                const __nv_bfloat16* __restrict__ wp,
+                OutT* __restrict__ out, Geom g, int stages, int ips) {
+  const int n_out = g.B * g.pad_out, K = g.ks * g.ks * g.ks;
+  const KeyMatches m{g, keys_in, keys_out, (int)blockIdx.x * conv_tile::M,
+                     n_out, K};
+  conv_tile::conv_tile<NT>(x, wp, out, n_out, g.cin, g.cout, K, stages, ips,
+                           m);
 }
 
-template <int NT, int KC, typename OutT>
-void launch(const void* x, const void* keys_in, const void* keys_out,
-            const void* w, void* out, const Geom& g, cudaStream_t stream) {
-  const int n_out = g.B * g.pad_out;
-  dim3 grid((n_out + TILE_M - 1) / TILE_M, g.cout / NT);
-  key_conv_kernel<NT, KC, OutT><<<grid, THREADS, 0, stream>>>(
+template <int NT, typename OutT>
+int launch(const void* x, const void* keys_in, const void* keys_out,
+           const void* w, void* wp, void* out, const Geom& g,
+           cudaStream_t stream) {
+  const int K = g.ks * g.ks * g.ks;
+  int rc = conv_tile::pack_w(w, wp, K, g.cin, g.cout, NT, stream);
+  if (rc) return rc;
+  return conv_tile::launch_tile<NT, key_conv_kernel<NT, OutT>>(
+      g.B * g.pad_out, g.cin, g.cout, K, stream,
       static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(keys_in),
       static_cast<const int*>(keys_out),
-      static_cast<const __nv_bfloat16*>(w), static_cast<OutT*>(out), g);
+      static_cast<const __nv_bfloat16*>(wp), static_cast<OutT*>(out), g);
 }
 
-template <int KC, typename OutT>
+template <typename OutT>
 int dispatch(const void* x, const void* keys_in, const void* keys_out,
-             const void* w, void* out, const Geom& g, cudaStream_t stream) {
+             const void* w, void* wp, void* out, const Geom& g,
+             cudaStream_t s) {
   if (g.B * g.pad_out == 0) return 0;
-  if (g.cout % 128 == 0) launch<128, KC, OutT>(x, keys_in, keys_out, w, out, g, stream);
-  else if (g.cout % 96 == 0) launch<96, KC, OutT>(x, keys_in, keys_out, w, out, g, stream);
-  else if (g.cout % 64 == 0) launch<64, KC, OutT>(x, keys_in, keys_out, w, out, g, stream);
-  else if (g.cout % 32 == 0) launch<32, KC, OutT>(x, keys_in, keys_out, w, out, g, stream);
-  else if (g.cout % 16 == 0) launch<16, KC, OutT>(x, keys_in, keys_out, w, out, g, stream);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (g.cin < 1 || g.cin % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (g.cout % 128 == 0) return launch<128, OutT>(x, keys_in, keys_out, w, wp, out, g, s);
+  if (g.cout % 96 == 0) return launch<96, OutT>(x, keys_in, keys_out, w, wp, out, g, s);
+  if (g.cout % 64 == 0) return launch<64, OutT>(x, keys_in, keys_out, w, wp, out, g, s);
+  if (g.cout % 32 == 0) return launch<32, OutT>(x, keys_in, keys_out, w, wp, out, g, s);
+  if (g.cout % 16 == 0) return launch<16, OutT>(x, keys_in, keys_out, w, wp, out, g, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
-
 
 // ------------------------------------------------------- weight gradients
-constexpr int STEM_KG = 25;      // stem offsets per block (125 = 5 groups)
-constexpr int STEM_CIN = 8;      // stem input channels held (cin <= 8)
-constexpr int STEM_CO = 32;      // stem output channels held (cout <= 32)
+constexpr int DW_M = 64;          // rows per dw tile (the product's depth)
+constexpr int DW_THREADS = 256;   // 8 warps
+constexpr int DW_WARPS = DW_THREADS / 32;
 
-// Input channels of a dw slab: 64 (4 warps) up to cin 64, else 128 (8
-// warps), so that cin 96 and 128 gather each tile once, not once per
-// 64-channel chunk. Python's key_conv_dw counts the same chunks.
-__host__ __device__ constexpr int dw_ci(int cin) { return cin <= 64 ? 64 : 128; }
+// How a dw launch splits the work; key_conv.py (_dw_slices) mirrors it to
+// size the partials. CI input channels and NT output channels per block,
+// G offsets sharing each g tile (~48 KB of x tiles per stage at most), and
+// per warp units of CW input x NB output channels of one offset: a 32 x 32
+// unit loads two A and two B fragments per eight products.
+struct DwPlan {
+  int CI, n_ci, NT, NB, CW, G, n_kg, upo, UPW;
+  DwPlan(int K, int cin, int cout) {
+    CI = cin <= 128 ? (cin + 15) / 16 * 16 : 128;
+    n_ci = (cin + CI - 1) / CI;
+    NT = cout % 128 == 0 ? 128 : cout % 96 == 0 ? 96 : cout % 64 == 0 ? 64
+         : cout % 32 == 0 ? 32 : 16;
+    NB = NT % 32 == 0 ? 32 : 16;
+    CW = CI % 32 == 0 ? 32 : 16;
+    upo = (CI / CW) * (NT / NB);
+    // at most 8 units per warp and 128 accumulator registers per thread
+    const int per_warp = 4096 / (CW * NB) < 8 ? 4096 / (CW * NB) : 8;
+    G = DW_WARPS * per_warp / upo;
+    const int g_smem = 49152 / (2 * DW_M * (CI + 8));
+    if (G > g_smem) G = g_smem;
+    if (G > K) G = K;
+    if (G < 1) G = 1;
+    n_kg = (K + G - 1) / G;
+    UPW = (G * upo + DW_WARPS - 1) / DW_WARPS;
+  }
+  int bytes(int stages) const {
+    return stages * 2 * DW_M * ((NT + 8) + G * (CI + 8)) +
+           2 * stages * G * DW_M * 4;
+  }
+};
 
-// Pass 1 of dw for the three _kernel modes. Block (k, s, z): offset k, input
-// channels c0 .. c0 + CI and output channels n0 .. n0 + NT (z enumerates the
-// chunks), over row tiles s, s + S, ...; their matches come from the table
-// (match_table_kernel). Warp w owns input channels
-// c0 + 16w .. c0 + 16w + 15 of the slab (a warp past cin idles in the
-// products). Writes the slab's partial sum to part[s][k] (a (cin, cout) f32
-// block per slice and offset).
-template <int NT, int CI>
-__global__ void __launch_bounds__(CI * 2)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Pass 1 of dw for the three _kernel modes. Block (kg, s, z): offsets
+// kg * G .. + G, input channels c0 .. c0 + CI and output channels n0 .. n0 +
+// NT (z enumerates the chunks), over row tiles s, s + S, ...; matches from
+// the table (K rows of n_pad entries, -1 past n_out). Writes the block's
+// slab of the partial sum to part[s][k] (a (cin, cout) f32 block per slice
+// and offset).
+template <int NB, int CW, int UPW>
+__global__ void __launch_bounds__(DW_THREADS)
 key_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
                    const int* __restrict__ table,
                    const __nv_bfloat16* __restrict__ gr,
-                   float* __restrict__ part, Geom g) {
-  constexpr int NTHR = CI * 2;    // CI / 16 warps
-  constexpr int NF = NT / 16;
-  constexpr int LDX = CI + 8;
-  constexpr int LDG = NT + 8;
-  constexpr int GV = NT / 8;
-  __shared__ __align__(32) __nv_bfloat16 xs[TILE_M * LDX];
-  __shared__ __align__(32) __nv_bfloat16 gs[TILE_M * LDG];
-  __shared__ __align__(32) float stage[NTHR / 32][16 * 16];
-  __shared__ int src[TILE_M];
-
+                   float* __restrict__ part, Geom g, int n_pad, int G, int CI,
+                   int NT, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n_out = g.B * g.pad_out;
-  const int n_tiles = (n_out + TILE_M - 1) / TILE_M;
-  const int k = blockIdx.x, K = gridDim.x;
-  const int s0 = blockIdx.y, n_s = gridDim.y;
-  const int n_ci = (g.cin + CI - 1) / CI;
-  const int c0 = (blockIdx.z % n_ci) * CI;
-  const int n0 = (blockIdx.z / n_ci) * NT;
-  const bool active = c0 + warp * 16 < g.cin;
+  const int K = g.ks * g.ks * g.ks, cin = g.cin, cout = g.cout;
+  const int n_tiles = (g.B * g.pad_out + DW_M - 1) / DW_M;
+  const int k0 = blockIdx.x * G, Gv = min(G, K - k0);
+  const int s0 = blockIdx.y, S = gridDim.y;
+  const int n_ci = (cin + CI - 1) / CI;
+  const int c0 = (blockIdx.z % n_ci) * CI, n0 = (blockIdx.z / n_ci) * NT;
+  const int LDX = CI + 8, LDG = NT + 8;
+  const int nbs = NT / NB, upo = (CI / CW) * nbs;
+  const int n_my = s0 < n_tiles ? (n_tiles - s0 + S - 1) / S : 0;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  __nv_bfloat16* gs0 = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* xs0 = gs0 + stages * DW_M * LDG;
+  int* ix0 = reinterpret_cast<int*>(xs0 + stages * G * DW_M * LDX);
+  auto slot = [&](int i) { return ix0 + (i % (2 * stages)) * G * DW_M; };
 
-  for (int t = s0; t < n_tiles; t += n_s) {
-    const int row0 = t * TILE_M;
-    int hit = -1;
-    if (tid < TILE_M && row0 + tid < n_out)
-      hit = __ldg(table + (size_t)k * n_out + row0 + tid);
-    __syncthreads();                  // last tile's readers of smem done
-    if (tid < TILE_M) src[tid] = hit;
-    if (!__syncthreads_or(hit >= 0)) continue;
-
-    gather_tile<CI, LDX, NTHR>(x, src, g.cin, c0, xs);
-    // the tile's g rows, zero where the row matched nothing (a padding row's
-    // g never reaches dw, even where it is not finite)
-    for (int i = tid; i < TILE_M * GV; i += NTHR) {
-      const int r = i / GV, v = i % GV;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (src[r] >= 0)
-        val = __ldg(reinterpret_cast<const uint4*>(
-            gr + (size_t)(row0 + r) * g.cout + n0 + v * 8));
-      *reinterpret_cast<uint4*>(gs + r * LDG + v * 8) = val;
+  // the table rows of tile j (the block's j-th), one ring turn ahead
+  auto load_idx = [&](int j) {
+    if (j >= n_my) return;
+    int* d = slot(j);
+    const int row0 = (s0 + j * S) * DW_M;
+    for (int v = tid; v < Gv * (DW_M / 4); v += DW_THREADS) {
+      const int kk = v >> 4, q = v & 15;            // DW_M / 4 = 16
+      hopper::cp_async16(d + kk * DW_M + q * 4,
+                         table + (size_t)(k0 + kk) * n_pad + row0 + q * 4, 16);
     }
-    __syncthreads();
-    if (!active) continue;
+  };
+  // tile i's g rows (zeros where no offset of the group matched) and its
+  // G matched x tiles into stage i % stages. Thread t moves row
+  // (t / 2) % 64, chunks (t % 2) + 2 (t / 128) + 4j: a warp reads pairs of
+  // 16-byte chunks of 16 rows, full 32-byte sectors.
+  const int lr = (tid >> 1) & (DW_M - 1), lc = (tid & 1) + 2 * (tid >> 7);
+  const int gv = NT / 8, xv = CI / 8;
+  auto issue = [&](int i) {
+    load_idx(i + stages - 1);
+    if (i >= n_my) return;
+    const int st = i % stages, row0 = (s0 + i * S) * DW_M;
+    const int* ix = slot(i) + lr;
+    bool any = false;
+    for (int kk = 0; kk < Gv; ++kk) any |= ix[kk * DW_M] >= 0;
+    __nv_bfloat16* gs = gs0 + st * DW_M * LDG + lr * LDG;
+    const __nv_bfloat16* gsrc = gr + (size_t)(row0 + lr) * cout + n0;
+    for (int cv = lc; cv < gv; cv += 4)
+      hopper::cp_async16(gs + cv * 8, any ? gsrc + cv * 8 : gr,
+                         any ? 16 : 0);
+    __nv_bfloat16* xs = xs0 + st * G * DW_M * LDX + lr * LDX;
+    for (int kk = 0; kk < Gv; ++kk) {
+      const int src = ix[kk * DW_M];
+      for (int cv = lc; cv < xv; cv += 4)
+        conv_tile::gather8(xs + kk * DW_M * LDX + cv * 8, x, src, cin,
+                           c0 + cv * 8);
+    }
+  };
+
+  // this warp's units: (offset kk, CW input channels, NB outputs)
+  int u_kk[UPW], u_x[UPW], u_g[UPW];
 #pragma unroll
-    for (int kk = 0; kk < TILE_M; kk += 16) {
-      // x^T: column-major view of the gathered rows
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> a;
-      wmma::load_matrix_sync(a, xs + kk * LDX + warp * 16, LDX);
+  for (int u = 0; u < UPW; ++u) {
+    const int unit = warp + DW_WARPS * u;
+    u_kk[u] = unit < Gv * upo ? unit / upo : -1;
+    u_x[u] = u_kk[u] * DW_M * LDX + ((unit % upo) / nbs) * CW;
+    u_g[u] = (unit % nbs) * NB;
+  }
+  const int a_off = ((lane & 7) + ((lane >> 4) & 1) * 8) * LDX +
+                    ((lane >> 3) & 1) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDG +
+                    ((lane >> 4) & 1) * 8;
+
+  float acc[UPW][CW / 16][NB / 8][4];
 #pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, gs + kk * LDG + j * 16, LDG);
-        wmma::mma_sync(acc[j], a, bf, acc[j]);
+  for (int u = 0; u < UPW; ++u)
+#pragma unroll
+    for (int c2 = 0; c2 < CW / 16; ++c2)
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][c2][j][e] = 0.0f;
+
+  for (int m = 0; m < stages - 1 && m < n_my; ++m) {
+    int* d = slot(m);
+    const int row0 = (s0 + m * S) * DW_M;
+    for (int v = tid; v < Gv * DW_M; v += DW_THREADS)
+      d[v] = __ldg(table + (size_t)(k0 + v / DW_M) * n_pad + row0 + v % DW_M);
+  }
+  __syncthreads();
+  for (int m = 0; m < stages - 1; ++m) {
+    issue(m);
+    hopper::cp_async_commit();
+  }
+  for (int i = 0; i < n_my; ++i) {
+    hopper::cp_async_wait(stages - 2);
+    __syncthreads();            // tile i landed; tile i - 1's products done
+    issue(i + stages - 1);
+    hopper::cp_async_commit();
+
+    const int st = i % stages;
+    const int* ix = slot(i);
+    const __nv_bfloat16* gs = gs0 + st * DW_M * LDG + b_off;
+    const __nv_bfloat16* xs = xs0 + st * G * DW_M * LDX + a_off;
+#pragma unroll
+    for (int u = 0; u < UPW; ++u) {
+      if (u_kk[u] < 0) continue;
+      const int* h = ix + u_kk[u] * DW_M;
+      if (!__any_sync(0xffffffffu, h[lane] >= 0 || h[lane + 32] >= 0))
+        continue;
+#pragma unroll
+      for (int ks = 0; ks < DW_M / 16; ++ks) {
+        uint32_t a[CW / 16][4];
+#pragma unroll
+        for (int c2 = 0; c2 < CW / 16; ++c2)
+          ldsm_x4_trans(a[c2], xs + u_x[u] + c2 * 16 + ks * 16 * LDX);
+#pragma unroll
+        for (int hh = 0; hh < NB / 16; ++hh) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, gs + u_g[u] + ks * 16 * LDG + hh * 16);
+#pragma unroll
+          for (int c2 = 0; c2 < CW / 16; ++c2) {
+            mma16816(acc[u][c2][2 * hh], a[c2], b[0], b[1]);
+            mma16816(acc[u][c2][2 * hh + 1], a[c2], b[2], b[3]);
+          }
+        }
       }
     }
   }
 
-  float* st = stage[warp];
-  float* dst = part + ((size_t)s0 * K + k) * g.cin * g.cout;
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    wmma::store_matrix_sync(st, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int c = c0 + warp * 16 + e / 16;
-      if (c < g.cin) dst[(size_t)c * g.cout + n0 + j * 16 + e % 16] = st[e];
+  for (int u = 0; u < UPW; ++u) {
+    if (u_kk[u] < 0) continue;
+    const int unit = warp + DW_WARPS * u;
+    const int cb = (unit % upo) / nbs, nb = unit % nbs;
+    float* dst = part + ((size_t)s0 * K + k0 + u_kk[u]) * cin * cout;
+#pragma unroll
+    for (int c2 = 0; c2 < CW / 16; ++c2)
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + cb * CW + c2 * 16 + (lane >> 2) + 8 * h;
+          const int n = n0 + nb * NB + j * 8 + (lane & 3) * 2;
+          if (c < cin)
+            *reinterpret_cast<float2*>(dst + (size_t)c * cout + n) =
+                make_float2(acc[u][c2][j][2 * h], acc[u][c2][j][2 * h + 1]);
+        }
+  }
+}
+
+template <int NB, int CW, int UPW>
+int launch_dw_k(const void* x, const void* table, const void* gr, void* part,
+                const Geom& g, int n_pad, const DwPlan& p, int& slices,
+                cudaStream_t stream) {
+  constexpr auto kernel = key_conv_dw_kernel<NB, CW, UPW>;
+  // as many blocks per SM as the registers allow (up to 4), then as many
+  // stages (2..4) as fit beside them
+  const int regs = conv_tile::kernel_regs<kernel>();
+  const int by_regs = 65536 / (((regs + 7) / 8 * 8) * DW_THREADS);
+  int stages = 0;
+  for (int b = by_regs < 4 ? by_regs : 4; b >= 1 && !stages; --b)
+    for (int st = 4; st >= 2 && !stages; --st)
+      if (b * (p.bytes(st) + 1024) <= conv_tile::SMEM_SM) stages = st;
+  if (!stages) stages = 2;
+  const int bytes = p.bytes(stages);
+  if (bytes > conv_tile::SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = conv_tile::allow_smem<kernel>(bytes);
+  if (rc) return rc;
+  // one wave: as many slices as the SMs hold blocks, within the capacity
+  // of the partials (slices) and one slice per tile
+  int per_sm = 1, sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DW_THREADS,
+                                                bytes);
+  const int per_slice = p.n_kg * p.n_ci * (g.cout / p.NT);
+  const int n_tiles = (g.B * g.pad_out + DW_M - 1) / DW_M;
+  int S = (per_sm > 0 ? per_sm : 1) * sms / per_slice;
+  if (S > slices) S = slices;
+  if (S > n_tiles) S = n_tiles;
+  slices = S < 1 ? 1 : S;
+  dim3 grid(p.n_kg, slices, p.n_ci * (g.cout / p.NT));
+  kernel<<<grid, DW_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(table),
+      static_cast<const __nv_bfloat16*>(gr), static_cast<float*>(part), g,
+      n_pad, p.G, p.CI, p.NT, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instantiation for the plan's unit shape (NB, CW) and units per warp
+template <int NB, int CW>
+int launch_dw_u(const void* x, const void* table, const void* gr, void* part,
+                const Geom& g, int n_pad, const DwPlan& p, int& slices,
+                cudaStream_t s) {
+  switch (p.UPW) {
+    case 1: return launch_dw_k<NB, CW, 1>(x, table, gr, part, g, n_pad, p, slices, s);
+    case 2: return launch_dw_k<NB, CW, 2>(x, table, gr, part, g, n_pad, p, slices, s);
+    case 3: return launch_dw_k<NB, CW, 3>(x, table, gr, part, g, n_pad, p, slices, s);
+    case 4: return launch_dw_k<NB, CW, 4>(x, table, gr, part, g, n_pad, p, slices, s);
+  }
+  if constexpr (NB * CW <= 512) {       // 32 x 32 units: at most 4
+    switch (p.UPW) {
+      case 5: return launch_dw_k<NB, CW, 5>(x, table, gr, part, g, n_pad, p, slices, s);
+      case 6: return launch_dw_k<NB, CW, 6>(x, table, gr, part, g, n_pad, p, slices, s);
+      case 7: return launch_dw_k<NB, CW, 7>(x, table, gr, part, g, n_pad, p, slices, s);
+      case 8: return launch_dw_k<NB, CW, 8>(x, table, gr, part, g, n_pad, p, slices, s);
     }
-    __syncwarp();
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_dw(const void* x, const void* table, const void* gr, void* part,
+              const Geom& g, int n_pad, const DwPlan& p, int& slices,
+              cudaStream_t s) {
+  if (p.NB == 32 && p.CW == 32) return launch_dw_u<32, 32>(x, table, gr, part, g, n_pad, p, slices, s);
+  if (p.NB == 32) return launch_dw_u<32, 16>(x, table, gr, part, g, n_pad, p, slices, s);
+  if (p.CW == 32) return launch_dw_u<16, 32>(x, table, gr, part, g, n_pad, p, slices, s);
+  return launch_dw_u<16, 16>(x, table, gr, part, g, n_pad, p, slices, s);
+}
+
+constexpr int STEM_TILE = 64;    // rows per stem dw tile
+constexpr int STEM_THREADS = 128;
+constexpr int STEM_KG = 25;      // stem offsets per block (125 = 5 groups)
+constexpr int STEM_CIN = 8;      // stem input channels held (cin <= 8)
+constexpr int STEM_CO = 32;      // stem output channels held (cout <= 32)
+
+// STEM_TILE gathered rows of x, channels 0 .. 16, into xs (row stride LDX)
+// as bf16; 0 for a row whose src is -1 and for channels >= cin.
+template <int LDX>
+__device__ __forceinline__ void stem_gather(const __nv_bfloat16* __restrict__ x,
+                                            const int* src, int cin,
+                                            __nv_bfloat16* xs) {
+  for (int i = threadIdx.x; i < STEM_TILE * 2; i += STEM_THREADS) {
+    const int r = i / 2, c = (i % 2) * 8, s = src[r];
+    union { uint4 u; unsigned short h[8]; } val;   // 8 bf16 bit patterns
+    val.u = make_uint4(0, 0, 0, 0);
+    if (s >= 0) {
+      const unsigned short* ph =
+          reinterpret_cast<const unsigned short*>(x + (size_t)s * cin + c);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c + e < cin) val.h[e] = ph[e];
+    }
+    *reinterpret_cast<uint4*>(xs + r * LDX + c) = val.u;
   }
 }
 
 // Pass 1 of the stem's dw. Block (s, kg): offsets kg*25 .. kg*25 + 24 over
-// row tiles s, s + S, ..., matches from the table; the block's share of dw
-// stays in shared memory
-// (acc[k][c][o]); per tile the g rows are loaded once, then per offset the
-// matched x rows (one 16-wide chunk, zeros past cin) are multiplied on the
-// tensor cores, warp w owning output channels 16w .. 16w + 15. Writes
-// part[s][k] for its 25 offsets.
-__global__ void __launch_bounds__(THREADS)
+// row tiles s, s + S, ..., matches from the table (rows of n_pad entries);
+// the block's share of dw stays in shared memory (acc[k][c][o]); per tile
+// the g rows are loaded once, then per offset the matched x rows (one
+// 16-wide chunk, zeros past cin) are multiplied on the tensor cores, warp w
+// owning output channels 16w .. 16w + 15. Writes part[s][k] for its 25
+// offsets.
+__global__ void __launch_bounds__(STEM_THREADS)
 key_conv_stem_dw_kernel(const __nv_bfloat16* __restrict__ x,
                         const int* __restrict__ keys,
                         const int* __restrict__ table,
                         const __nv_bfloat16* __restrict__ gr,
-                        float* __restrict__ part, Geom g) {
+                        float* __restrict__ part, Geom g, int n_pad) {
   constexpr int LDX = 16 + 8;
   constexpr int LDG = STEM_CO + 8;
   constexpr int GV = STEM_CO / 8;
-  __shared__ __align__(32) __nv_bfloat16 xs[TILE_M * LDX];
-  __shared__ __align__(32) __nv_bfloat16 gs[TILE_M * LDG];
+  __shared__ __align__(32) __nv_bfloat16 xs[STEM_TILE * LDX];
+  __shared__ __align__(32) __nv_bfloat16 gs[STEM_TILE * LDG];
   __shared__ __align__(32) float stage[STEM_CO / 16][16 * 16];
   __shared__ float acc[STEM_KG * STEM_CIN * STEM_CO];
-  __shared__ int src[TILE_M];
+  __shared__ int src[STEM_TILE];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n = g.B * g.pad_out;
-  const int n_tiles = (n + TILE_M - 1) / TILE_M;
+  const int n_tiles = (n + STEM_TILE - 1) / STEM_TILE;
   const int k0 = blockIdx.y * STEM_KG;
   const int gv = g.cout / 8;
-  for (int i = tid; i < STEM_KG * STEM_CIN * STEM_CO; i += THREADS)
+  for (int i = tid; i < STEM_KG * STEM_CIN * STEM_CO; i += STEM_THREADS)
     acc[i] = 0.0f;
 
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int row0 = t * TILE_M;
-    const int key = tid < TILE_M && row0 + tid < n ? keys[row0 + tid]
-                                                   : kSentKey;
+    const int row0 = t * STEM_TILE;
+    const int key = tid < STEM_TILE && row0 + tid < n ? keys[row0 + tid]
+                                                      : kSentKey;
     __syncthreads();                  // last tile's readers of smem done
-    for (int i = tid; i < TILE_M * GV; i += THREADS) {
+    for (int i = tid; i < STEM_TILE * GV; i += STEM_THREADS) {
       const int r = i / GV, v = i % GV;
       uint4 val = make_uint4(0, 0, 0, 0);
       if (v < gv && row0 + r < n && keys[row0 + r] < kSentKey)
@@ -313,17 +573,17 @@ key_conv_stem_dw_kernel(const __nv_bfloat16* __restrict__ x,
 
     for (int kk = 0; kk < STEM_KG; ++kk) {
       const int hit = key < kSentKey
-          ? __ldg(table + (size_t)(k0 + kk) * n + row0 + tid) : -1;
+          ? __ldg(table + (size_t)(k0 + kk) * n_pad + row0 + tid) : -1;
       __syncthreads();                // last offset's readers of xs done
-      if (tid < TILE_M) src[tid] = hit;
+      if (tid < STEM_TILE) src[tid] = hit;
       if (!__syncthreads_or(hit >= 0)) continue;
-      gather_tile<16, LDX>(x, src, g.cin, 0, xs);
+      stem_gather<LDX>(x, src, g.cin, xs);
       __syncthreads();
       if (warp < g.cout / 16) {
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
         wmma::fill_fragment(f, 0.0f);
 #pragma unroll
-        for (int r0 = 0; r0 < TILE_M; r0 += 16) {
+        for (int r0 = 0; r0 < STEM_TILE; r0 += 16) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                          wmma::col_major> a;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
@@ -345,7 +605,7 @@ key_conv_stem_dw_kernel(const __nv_bfloat16* __restrict__ x,
   }
   __syncthreads();
   float* dst = part + ((size_t)blockIdx.x * 125 + k0) * g.cin * g.cout;
-  for (int i = tid; i < STEM_KG * g.cin * g.cout; i += THREADS) {
+  for (int i = tid; i < STEM_KG * g.cin * g.cout; i += STEM_THREADS) {
     const int kk = i / (g.cin * g.cout), c = (i / g.cout) % g.cin,
               o = i % g.cout;
     dst[i] = acc[(kk * STEM_CIN + c) * STEM_CO + o];
@@ -353,29 +613,31 @@ key_conv_stem_dw_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // The matched input row (or -1) of every output row at every offset:
-// table[k * n_out + v] = match(keys_out[v], k). One search per thread, all
-// in flight at once, so the dw kernels read their matches with one
-// coalesced load per tile instead of a dependent search chain per tile.
+// table[k * n_pad + v] = match(keys_out[v], k), -1 for v >= n_out. One
+// search per thread, all in flight at once, so the dw kernels read their
+// matches with one coalesced load per tile.
 __global__ void match_table_kernel(const int* __restrict__ keys_in,
                                    const int* __restrict__ keys_out,
-                                   int* __restrict__ table, Geom g) {
+                                   int* __restrict__ table, Geom g,
+                                   int n_pad) {
   const int n_out = g.B * g.pad_out;
-  const size_t n = (size_t)g.ks * g.ks * g.ks * n_out;
+  const size_t n = (size_t)g.ks * g.ks * g.ks * n_pad;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
-    const int k = (int)(i / n_out), v = (int)(i % n_out);
-    table[i] = match(g, keys_in, __ldg(keys_out + v), v / g.pad_out, k);
+    const int k = (int)(i / n_pad), v = (int)(i % n_pad);
+    table[i] = v < n_out
+        ? match(g, keys_in, __ldg(keys_out + v), v / g.pad_out, k) : -1;
   }
 }
 
 int match_table(const void* keys_in, const void* keys_out, void* table,
-                const Geom& g, cudaStream_t stream) {
-  const size_t n = (size_t)g.ks * g.ks * g.ks * g.B * g.pad_out;
+                const Geom& g, int n_pad, cudaStream_t stream) {
+  const size_t n = (size_t)g.ks * g.ks * g.ks * n_pad;
   const size_t blocks = (n + 255) / 256;
   match_table_kernel<<<(int)(blocks < 132 * 64 ? blocks : 132 * 64), 256, 0,
                        stream>>>(static_cast<const int*>(keys_in),
                                  static_cast<const int*>(keys_out),
-                                 static_cast<int*>(table), g);
+                                 static_cast<int*>(table), g, n_pad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -397,26 +659,7 @@ int sum_slices(const float* part, float* out, size_t n, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT, int CI>
-int launch_dw_ci(const void* x, const void* table, const void* gr, void* part,
-                 const Geom& g, int slices, cudaStream_t stream) {
-  const int n_ci = (g.cin + CI - 1) / CI;
-  // offsets fastest: the blocks of one row slice run together and share
-  // its g tiles in L2
-  dim3 grid(g.ks * g.ks * g.ks, slices, n_ci * (g.cout / NT));
-  key_conv_dw_kernel<NT, CI><<<grid, CI * 2, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(table),
-      static_cast<const __nv_bfloat16*>(gr), static_cast<float*>(part), g);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int NT>
-int launch_dw(const void* x, const void* table, const void* gr, void* part,
-              const Geom& g, int slices, cudaStream_t stream) {
-  if (dw_ci(g.cin) == 64)
-    return launch_dw_ci<NT, 64>(x, table, gr, part, g, slices, stream);
-  return launch_dw_ci<NT, 128>(x, table, gr, part, g, slices, stream);
-}
+int table_stride(int n_out) { return (n_out + DW_M - 1) / DW_M * DW_M; }
 
 }  // namespace
 
@@ -425,34 +668,36 @@ extern "C" {
 // The three modes of key_conv: same-level (ks 3, lo -1, sign 1, guard 1),
 // down (ks 2, lo 0, sign 1, guard 0), up (ks 2, lo 0, sign -1, guard 0).
 // x (B*pad_in, cin) bf16; keys_in (B, pad_in) i32 sorted, SENT-padded;
-// keys_out (B*pad_out,) i32; w (ks^3, cin, cout) bf16; out (B*pad_out, cout)
-// f32 (out_bf16 = 0) or bf16. Returns the cudaGetLastError() after launch.
+// keys_out (B*pad_out,) i32; w (ks^3, cin, cout) bf16; wp scratch of
+// ks^3 * cout * n_ch * kc bf16 (conv_tile::chunks), the packed w; cin % 8
+// == 0 (x and w zero-padded by the caller); out
+// (B*pad_out, cout) f32 (out_bf16 = 0) or bf16. Returns the CUDA error code
+// of the launches.
 int b2m_key_conv(const void* x, const void* keys_in, const void* keys_out,
-                 const void* w, void* out, int B, int pad_in, int pad_out,
-                 int cin, int cout, int ks, int lo, int sign, int scale,
-                 int guard, int out_bf16, void* stream) {
+                 const void* w, void* wp, void* out, int B, int pad_in,
+                 int pad_out, int cin, int cout, int ks, int lo, int sign,
+                 int scale, int guard, int out_bf16, void* stream) {
   const Geom g{B, pad_in, pad_out, cin, cout, ks, lo, sign, scale, guard};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    return dispatch<32, __nv_bfloat16>(x, keys_in, keys_out, w, out, g, s);
-  return dispatch<32, float>(x, keys_in, keys_out, w, out, g, s);
+    return dispatch<__nv_bfloat16>(x, keys_in, keys_out, w, wp, out, g, s);
+  return dispatch<float>(x, keys_in, keys_out, w, wp, out, g, s);
 }
 
-// The 5^3 stem: input space == output space, cin <= 16 (one 16-wide channel
-// chunk per offset), f32 out.
+// The 5^3 stem: input space == output space, f32 out; wp as b2m_key_conv.
 int b2m_key_conv_stem(const void* x, const void* keys, const void* w,
-                      void* out, int B, int pad, int cin, int cout,
+                      void* wp, void* out, int B, int pad, int cin, int cout,
                       void* stream) {
-  if (cin > 16) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{B, pad, pad, cin, cout, 5, -2, 1, 1, 1};
-  return dispatch<16, float>(x, keys, keys, w, out, g,
-                             static_cast<cudaStream_t>(stream));
+  return dispatch<float>(x, keys, keys, w, wp, out, g,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // dw of the three key_conv modes (the same Geom as b2m_key_conv): x
-// (B*pad_in, cin) bf16; g (B*pad_out, cout) bf16; part (slices, ks^3, cin,
-// cout) f32 and table (ks^3, B*pad_out) i32 scratch; dw (ks^3, cin, cout)
-// f32. cout % 16 == 0.
+// (B*pad_in, cin) bf16, cin % 8 == 0; g (B*pad_out, cout) bf16; part (slices, ks^3, cin,
+// cout) f32 and table (ks^3, n_pad) i32 scratch, n_pad = B*pad_out rounded
+// up to 64; dw (ks^3, cin, cout) f32. cout % 16 == 0. The launch uses at
+// most `slices` row slices (as many as one wave of blocks holds).
 int b2m_key_conv_dw(const void* x, const void* keys_in, const void* keys_out,
                     const void* g, void* part, void* dw, void* table, int B,
                     int pad_in, int pad_out, int cin, int cout, int ks,
@@ -460,28 +705,28 @@ int b2m_key_conv_dw(const void* x, const void* keys_in, const void* keys_out,
                     void* stream) {
   const Geom geo{B, pad_in, pad_out, cin, cout, ks, lo, sign, scale, guard};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (slices < 1 || cout % 16) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = (size_t)ks * ks * ks * cin * cout;
+  if (slices < 1 || cout % 16 || cin % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int K = ks * ks * ks;
+  const size_t n = (size_t)K * cin * cout;
   int rc;
   if (B * pad_out == 0 || n == 0) {
     rc = static_cast<int>(cudaMemsetAsync(dw, 0, n * sizeof(float), s));
     return rc ? rc : static_cast<int>(cudaGetLastError());
   }
-  rc = match_table(keys_in, keys_out, table, geo, s);
+  const int n_pad = table_stride(B * pad_out);
+  rc = match_table(keys_in, keys_out, table, geo, n_pad, s);
   if (rc) return rc;
-  if (cout % 128 == 0) rc = launch_dw<128>(x, table, g, part, geo, slices, s);
-  else if (cout % 96 == 0) rc = launch_dw<96>(x, table, g, part, geo, slices, s);
-  else if (cout % 64 == 0) rc = launch_dw<64>(x, table, g, part, geo, slices, s);
-  else if (cout % 32 == 0) rc = launch_dw<32>(x, table, g, part, geo, slices, s);
-  else rc = launch_dw<16>(x, table, g, part, geo, slices, s);
+  const DwPlan p(K, cin, cout);
+  rc = launch_dw(x, table, g, part, geo, n_pad, p, slices, s);
   if (rc) return rc;
   return sum_slices(static_cast<const float*>(part), static_cast<float*>(dw),
                     n, slices, s);
 }
 
 // dw of the 5^3 stem: x (B*pad, cin <= 8) bf16; g (B*pad, cout) bf16 with
-// cout 16 or 32; part (slices, 125, cin, cout) f32 and table (125, B*pad)
-// i32 scratch; dw (125, cin, cout) f32.
+// cout 16 or 32; part (slices, 125, cin, cout) f32 and table (125, n_pad)
+// i32 scratch (n_pad as b2m_key_conv_dw); dw (125, cin, cout) f32.
 int b2m_key_conv_stem_dw(const void* x, const void* keys, const void* g,
                          void* part, void* dw, void* table, int B, int pad,
                          int cin, int cout, int slices, void* stream) {
@@ -495,12 +740,13 @@ int b2m_key_conv_stem_dw(const void* x, const void* keys, const void* g,
     return rc ? rc : static_cast<int>(cudaGetLastError());
   }
   const Geom geo{B, pad, pad, cin, cout, 5, -2, 1, 1, 1};
-  int rc = match_table(keys, keys, table, geo, s);
+  const int n_pad = table_stride(B * pad);
+  int rc = match_table(keys, keys, table, geo, n_pad, s);
   if (rc) return rc;
-  key_conv_stem_dw_kernel<<<dim3(slices, 125 / STEM_KG), THREADS, 0, s>>>(
+  key_conv_stem_dw_kernel<<<dim3(slices, 125 / STEM_KG), STEM_THREADS, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(keys),
       static_cast<const int*>(table), static_cast<const __nv_bfloat16*>(g),
-      static_cast<float*>(part), geo);
+      static_cast<float*>(part), geo, n_pad);
   rc = static_cast<int>(cudaGetLastError());
   if (rc) return rc;
   return sum_slices(static_cast<const float*>(part), static_cast<float*>(dw),

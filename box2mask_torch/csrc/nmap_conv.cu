@@ -12,25 +12,21 @@
 //     the transpose up conv's pick of one of the 8 weight slots per fine row
 //     from the f32 product of the coarse rows with all 8 slots.
 //
-// Conv design. The tile of csrc/conv_tile.cuh, as in the key-matching conv
-// of csrc/key_conv.cu: one block owns 64 output rows x NT output channels;
-// per offset each of threads 0..63 reads its row's map entry, a block vote
-// skips an offset that no row of the tile matched, the matched bf16 rows and
-// w[k] are staged in shared memory (zeros at the sentinel, and past cin: the
-// stem's cin 6 is padded to one 16-wide chunk) and four warps multiply them
-// on the tensor cores (wmma, f32 accumulators in registers). The output is
-// written once; a padding row (all sentinels) comes out exactly 0. The TPU
-// kernel's union window DMA, one-hot MXU gather, 128-lane channel padding
-// and TILE 256 / WINDOW 2048 have no part here.
+// Conv design: the tile of csrc/conv_tile.cuh, as in the key-matching conv
+// of csrc/key_conv.cu: one block owns 128 output rows x NT output channels;
+// its matches are one coalesced read of the tile's K map entries per row
+// (entries >= vin become -1), then the live-offset list, the cp.async /
+// bulk-copy ring (zeros at the sentinel and past cin: the stem's cin 6,
+// zero-padded to 8 by the wrapper, pads to 16), wgmma with f32 accumulators in registers and 16-byte f32 stores.
+// A padding row (all sentinels) comes out exactly 0. The TPU kernel's union
+// window DMA, one-hot MXU gather, 128-lane channel padding and TILE 256 /
+// WINDOW 2048 have no part here.
 //
 // Bound on the H100: at the main path's shapes the FLOPs of the matched
 // pairs (2 * hits * cin * cout) are far under the 989 TFLOP/s bf16 peak, so
 // the bound is the bytes over 3.35 TB/s: the valid x rows and w in bf16, the
 // int32 map (Vout * K * 4 B, 57 MB for the level-0 3^3 map of 4 ScanNet
-// scenes) and the f32 output. A row's map entries are K * 4 bytes apart, so
-// the first offset brings the tile's map rows into L1 and the later offsets
-// read them from there; the per-offset chain of map load, gather and
-// products is not pipelined (work for a later version, with the key conv's).
+// scenes) and the f32 output.
 //
 // Gather design. One warp per output row, grid-striding: lane j moves
 // channels 4j .. 4j + 3 with one 16-byte load and store, rounding each value
@@ -45,48 +41,57 @@
 
 namespace {
 
-using conv_tile::TILE_M;
-using conv_tile::THREADS;
+// The tile's matches from the neighbor map: the M x K entries of its rows
+// are one contiguous, coalesced read.
+struct MapMatches {
+  const int* __restrict__ nbr;
+  int row0, n_out, vin, K;
 
-template <int NT, int KC>
-__global__ void __launch_bounds__(THREADS)
+  __device__ __forceinline__ void operator()(int* mt, int*) const {
+    using conv_tile::M;
+    const int rows = min(M, n_out - row0);
+    for (int i = threadIdx.x; i < M * K; i += conv_tile::THREADS) {
+      const int r = i / K, k = i % K;
+      const int v = r < rows ? __ldg(nbr + (size_t)row0 * K + i) : -1;
+      mt[k * conv_tile::MS + r] =
+          static_cast<unsigned>(v) < static_cast<unsigned>(vin) ? v : -1;
+    }
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(conv_tile::THREADS)
 nmap_conv_kernel(const __nv_bfloat16* __restrict__ x,
                  const int* __restrict__ nbr,
-                 const __nv_bfloat16* __restrict__ w,
+                 const __nv_bfloat16* __restrict__ wp,
                  float* __restrict__ out, int n_out, int vin, int K, int cin,
-                 int cout) {
-  const int row = blockIdx.x * TILE_M + threadIdx.x;
-  const int* nrow = (threadIdx.x < TILE_M && row < n_out)
-                        ? nbr + (size_t)row * K : nullptr;
-  conv_tile::conv_tile<NT, KC>(x, w, out, n_out, cin, cout, K, [&](int k) {
-    if (nrow == nullptr) return -1;
-    const int v = __ldg(nrow + k);
-    return static_cast<unsigned>(v) < static_cast<unsigned>(vin) ? v : -1;
-  });
+                 int cout, int stages, int ips) {
+  const MapMatches m{nbr, (int)blockIdx.x * conv_tile::M, n_out, vin, K};
+  conv_tile::conv_tile<NT>(x, wp, out, n_out, cin, cout, K, stages, ips, m);
 }
 
-template <int NT, int KC>
-void launch_conv(const void* x, const void* nbr, const void* w, void* out,
-                 int n_out, int vin, int K, int cin, int cout,
-                 cudaStream_t stream) {
-  dim3 grid((n_out + TILE_M - 1) / TILE_M, cout / NT);
-  nmap_conv_kernel<NT, KC><<<grid, THREADS, 0, stream>>>(
+template <int NT>
+int launch_conv(const void* x, const void* nbr, const void* w, void* wp,
+                void* out, int n_out, int vin, int K, int cin, int cout,
+                cudaStream_t stream) {
+  int rc = conv_tile::pack_w(w, wp, K, cin, cout, NT, stream);
+  if (rc) return rc;
+  return conv_tile::launch_tile<NT, nmap_conv_kernel<NT>>(
+      n_out, cin, cout, K, stream,
       static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(nbr),
-      static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out), n_out,
+      static_cast<const __nv_bfloat16*>(wp), static_cast<float*>(out), n_out,
       vin, K, cin, cout);
 }
 
-template <int KC>
-int dispatch_conv(const void* x, const void* nbr, const void* w, void* out,
-                  int n_out, int vin, int K, int cin, int cout,
+int dispatch_conv(const void* x, const void* nbr, const void* w, void* wp,
+                  void* out, int n_out, int vin, int K, int cin, int cout,
                   cudaStream_t s) {
-  if (cout % 128 == 0) launch_conv<128, KC>(x, nbr, w, out, n_out, vin, K, cin, cout, s);
-  else if (cout % 96 == 0) launch_conv<96, KC>(x, nbr, w, out, n_out, vin, K, cin, cout, s);
-  else if (cout % 64 == 0) launch_conv<64, KC>(x, nbr, w, out, n_out, vin, K, cin, cout, s);
-  else if (cout % 32 == 0) launch_conv<32, KC>(x, nbr, w, out, n_out, vin, K, cin, cout, s);
-  else if (cout % 16 == 0) launch_conv<16, KC>(x, nbr, w, out, n_out, vin, K, cin, cout, s);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (cout % 128 == 0) return launch_conv<128>(x, nbr, w, wp, out, n_out, vin, K, cin, cout, s);
+  if (cout % 96 == 0) return launch_conv<96>(x, nbr, w, wp, out, n_out, vin, K, cin, cout, s);
+  if (cout % 64 == 0) return launch_conv<64>(x, nbr, w, wp, out, n_out, vin, K, cin, cout, s);
+  if (cout % 32 == 0) return launch_conv<32>(x, nbr, w, wp, out, n_out, vin, K, cin, cout, s);
+  if (cout % 16 == 0) return launch_conv<16>(x, nbr, w, wp, out, n_out, vin, K, cin, cout, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -132,17 +137,18 @@ gather_rows_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 extern "C" {
 
 // x (vin, cin) bf16; nbr (n_out, K) i32, entries >= vin add 0; w (K, cin,
-// cout) bf16 with cout % 16 == 0; out (n_out, cout) f32. Returns the
-// cudaGetLastError() after launch.
-int b2m_nmap_conv(const void* x, const void* nbr, const void* w, void* out,
-                  int n_out, int vin, int K, int cin, int cout,
+// cout) bf16 with cin % 8 == 0 (x and w zero-padded by the caller) and
+// cout % 16 == 0; wp scratch of K * cout * n_ch * kc bf16
+// (conv_tile::chunks), the packed w; out (n_out, cout) f32. Returns the CUDA
+// error code of the launches.
+int b2m_nmap_conv(const void* x, const void* nbr, const void* w, void* wp,
+                  void* out, int n_out, int vin, int K, int cin, int cout,
                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cin < 1 || K < 1 || cout % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (cin < 1 || cin % 8 || K < 1 || cout % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_out == 0 || cout == 0) return 0;
-  if (cin <= 16)
-    return dispatch_conv<16>(x, nbr, w, out, n_out, vin, K, cin, cout, s);
-  return dispatch_conv<32>(x, nbr, w, out, n_out, vin, K, cin, cout, s);
+  return dispatch_conv(x, nbr, w, wp, out, n_out, vin, K, cin, cout, s);
 }
 
 // x (vin, c) f32; idx (n,) i32, entries >= vin give 0; out (n, c) f32.

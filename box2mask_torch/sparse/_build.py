@@ -30,13 +30,13 @@ _I = ctypes.c_int
 # the cudaGetLastError() code after its launch)
 SIGNATURES = {
     'key_conv': {
-        'b2m_key_conv': [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
-        'b2m_key_conv_stem': [_P, _P, _P, _P] + [_I] * 4 + [_P],
+        'b2m_key_conv': [_P] * 6 + [_I] * 11 + [_P],
+        'b2m_key_conv_stem': [_P] * 5 + [_I] * 4 + [_P],
         'b2m_key_conv_dw': [_P] * 7 + [_I] * 11 + [_P],
         'b2m_key_conv_stem_dw': [_P] * 6 + [_I] * 5 + [_P],
     },
     'nmap_conv': {
-        'b2m_nmap_conv': [_P] * 4 + [_I] * 5 + [_P],
+        'b2m_nmap_conv': [_P] * 5 + [_I] * 5 + [_P],
         'b2m_gather_rows': [_P] * 3 + [_I] * 3 + [_P],
     },
 }

@@ -170,6 +170,17 @@ def _bf16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def pad_cin(x, w=None):
+    """bf16 x (rows, cin) and w (K, cin, cout) zero-padded to a multiple of
+    8 input channels: the kernels gather x in 16-byte chunks of 8 channels
+    (the stem's cin 6 becomes 8; zero channels add 0)."""
+    p = -x.shape[1] % 8
+    if p:
+        x = torch.nn.functional.pad(x, (0, p))
+        w = None if w is None else torch.nn.functional.pad(w, (0, 0, 0, p))
+    return x, w
+
+
 def _geometry(kernel_size, stride_child, stride_parent):
     """(offsets per axis, first offset, query sign) of a key_conv mode."""
     if stride_child or stride_parent:
@@ -178,12 +189,44 @@ def _geometry(kernel_size, stride_child, stride_parent):
 
 
 def _slices(n_rows, blocks_per_slice):
-    """Row-tile slices of a dw launch: ~32 blocks per SM of the H100 in all
-    (each tile is a chain of dependent loads, match table then gather, and
-    more blocks in flight hide more of that wait), at most one slice per
+    """Row-tile slices of a stem dw launch: ~32 blocks per SM of the H100 in
+    all (each tile is a chain of dependent loads, match table then gather,
+    and more blocks in flight hide more of that wait), at most one slice per
     64-row tile."""
     n_tiles = max(1, -(-n_rows // 64))
     return max(1, min(n_tiles, -(-32 * 132 // blocks_per_slice)))
+
+
+def wpack_numel(K, cin, cout):
+    """Elements of the packed-w scratch of a forward launch: cin in n_ch
+    chunks of kc channels, kc % 16 == 0 and at most 128 (csrc/conv_tile.cuh
+    chunks)."""
+    kp = -(-cin // 16) * 16
+    n_ch = -(-kp // 128)
+    kc = -(-(-(-kp // n_ch)) // 16) * 16
+    return K * cout * n_ch * kc
+
+
+def table_stride(n_rows):
+    """Entries per offset of a dw match table: the rows rounded up to 64."""
+    return -(-n_rows // 64) * 64
+
+
+def _dw_slices(n_rows, K, cin, cout):
+    """Capacity of a dw launch's partials in row-tile slices: one wave of
+    up to 4 blocks per SM of the H100's 132 (the kernel takes as many as
+    the SMs hold), the blocks per slice as csrc/key_conv.cu DwPlan splits
+    them: G offsets sharing each g tile, input chunks of CI, output chunks
+    of NT."""
+    ci = min(-(-cin // 16) * 16, 128)
+    nt = next(n for n in (128, 96, 64, 32, 16) if cout % n == 0)
+    nb, cw = (32 if nt % 32 == 0 else 16), (32 if ci % 32 == 0 else 16)
+    units = 8 * min(8, 4096 // (cw * nb))
+    G = max(1, min(K, units // (ci // cw * (nt // nb)),
+                   49152 // (128 * (ci + 8))))
+    per_slice = -(-K // G) * -(-cin // ci) * (cout // nt)
+    n_tiles = max(1, -(-n_rows // 64))
+    return max(1, min(n_tiles, 4 * 132 // per_slice))
 
 
 def key_conv(x, keys_in_b, keys_out, w, *, kernel_size=3, stride_child=False,
@@ -208,15 +251,18 @@ def key_conv(x, keys_in_b, keys_out, w, *, kernel_size=3, stride_child=False,
     ks, lo, sign = _geometry(kernel_size, stride_child, stride_parent)
     B, pad_in = keys_in_b.shape
     pad_out = keys_out.numel() // B
-    xb, wb = _bf16(x), _bf16(w)
+    xb, wb = pad_cin(_bf16(x), _bf16(w))
     kin = keys_in_b.contiguous()
     kout = keys_out.reshape(-1).contiguous()
     out = torch.empty(B * pad_out, w.shape[2], dtype=x.dtype, device=x.device)
+    wp = torch.empty(wpack_numel(*wb.shape), dtype=torch.bfloat16,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(lib.b2m_key_conv, xb.data_ptr(), kin.data_ptr(),
-                kout.data_ptr(), wb.data_ptr(), out.data_ptr(), B, pad_in,
-                pad_out, x.shape[1], w.shape[2], ks, lo, sign, scale,
+                kout.data_ptr(), wb.data_ptr(), wp.data_ptr(),
+                out.data_ptr(), B, pad_in,
+                pad_out, xb.shape[1], w.shape[2], ks, lo, sign, scale,
                 int(bool(guard)), int(x.dtype == torch.bfloat16), stream)
     LAUNCHES[mode] += 1
     return out
@@ -239,14 +285,17 @@ def key_conv_stem(x, keys_in_b, w):
     from box2mask_torch.sparse import _build
     lib = _build.load('key_conv')
     B, pad = keys_in_b.shape
-    xb, wb = _bf16(x), _bf16(w)
+    xb, wb = pad_cin(_bf16(x), _bf16(w))
     kin = keys_in_b.contiguous()
     out = torch.empty(B * pad, w.shape[2], dtype=torch.float32,
                       device=x.device)
+    wp = torch.empty(wpack_numel(*wb.shape), dtype=torch.bfloat16,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(lib.b2m_key_conv_stem, xb.data_ptr(), kin.data_ptr(),
-                wb.data_ptr(), out.data_ptr(), B, pad, x.shape[1],
+                wb.data_ptr(), wp.data_ptr(), out.data_ptr(), B, pad,
+                xb.shape[1],
                 w.shape[2], stream)
     LAUNCHES['stem'] += 1
     return out
@@ -289,17 +338,15 @@ def key_conv_dw(x, g, keys_in_b, keys_out, *, kernel_size=3,
     K = ks ** 3
     B, pad_in = keys_in_b.shape
     pad_out = keys_out.numel() // B
-    cin, cout = x.shape[1], g.shape[1]
-    # blocks per slice: offsets x input-channel chunks (64, or 128 past cin
-    # 64: csrc dw_ci) x output-channel chunks
-    S = _slices(B * pad_out, K * -(-cin // (64 if cin <= 64 else 128))
-                * -(-cout // 128))
-    xb, gb = _bf16(x), _bf16(g)
+    xb, gb = pad_cin(_bf16(x))[0], _bf16(g)
+    cin, cout = xb.shape[1], g.shape[1]
+    S = _dw_slices(B * pad_out, K, cin, cout)
     kin = keys_in_b.contiguous()
     kout = keys_out.reshape(-1).contiguous()
     part = torch.empty(S, K, cin, cout, dtype=torch.float32, device=x.device)
     dw = torch.empty(K, cin, cout, dtype=torch.float32, device=x.device)
-    table = torch.empty(K, B * pad_out, dtype=torch.int32, device=x.device)
+    table = torch.empty(K, table_stride(B * pad_out), dtype=torch.int32,
+                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(lib.b2m_key_conv_dw, xb.data_ptr(), kin.data_ptr(),
@@ -307,7 +354,7 @@ def key_conv_dw(x, g, keys_in_b, keys_out, *, kernel_size=3,
                 dw.data_ptr(), table.data_ptr(), B, pad_in, pad_out, cin,
                 cout, ks, lo, sign, scale, int(bool(guard)), S, stream)
     LAUNCHES['dw'] += 1
-    return dw
+    return dw if cin == x.shape[1] else dw[:, :x.shape[1]].contiguous()
 
 
 def key_conv_stem_dw(x, g, keys_in_b):
@@ -333,7 +380,8 @@ def key_conv_stem_dw(x, g, keys_in_b):
     part = torch.empty(S, 125, cin, cout, dtype=torch.float32,
                        device=x.device)
     dw = torch.empty(125, cin, cout, dtype=torch.float32, device=x.device)
-    table = torch.empty(125, B * pad, dtype=torch.int32, device=x.device)
+    table = torch.empty(125, table_stride(B * pad), dtype=torch.int32,
+                        device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(lib.b2m_key_conv_stem_dw, xb.data_ptr(), kin.data_ptr(),

@@ -21,15 +21,15 @@ What bounds them on the H100, and what the design does about it
     the matched pairs are far under the bf16 tensor-core peak, so the bound
     is the bytes: the valid x rows and w in bf16, the int32 map (Vout x K x
     4 B: 57 MB for the level-0 3^3 map of 4 ScanNet scenes) and the f32
-    output written once. A block owns 64 output rows x NT output channels,
-    reads its rows' map column per offset, gathers the matched bf16 x rows
-    into shared memory (zeros at the sentinel) and multiplies them with w[k]
-    on the tensor cores (wmma, f32 accumulators in registers); a block vote
-    skips an offset no row of the tile matched. It is the key-matching
-    conv of csrc/key_conv.cu with the match read from the map instead of
-    searched, and shares its gather and product device functions
-    (csrc/conv_tile.cuh). The TPU kernel's union-window DMA, one-hot MXU
-    gather and 128-lane channel padding have no part here.
+    output written once. A block owns 128 output rows x NT output
+    channels, reads its rows' map entries once, lists the offsets with a
+    hit in the tile, and streams the matched bf16 x rows (zeros at the
+    sentinel) and the packed w[k] slabs through a ring of shared-memory
+    stages (cp.async, bulk copies) into wgmma products with f32
+    accumulators in registers. It is the key-matching conv of
+    csrc/key_conv.cu with the match read from the map instead of searched,
+    and shares its tile (csrc/conv_tile.cuh). The TPU kernel's union-window
+    DMA, one-hot MXU gather and 128-lane channel padding have no part here.
   * gather_rows: a pure gather with a cast, bytes-bound (idx read once, the
     gathered f32 rows read and the f32 output written once). One warp per
     output row, 16-byte loads and stores, each value rounded f32 -> bf16 ->
@@ -44,6 +44,8 @@ the neighbor-map path does not train in the port yet (ROADMAP A18).
 from __future__ import annotations
 
 import torch
+
+from box2mask_torch.sparse.key_conv import pad_cin, wpack_numel
 
 TILE = 256      # row multiple the JAX dispatch requires (pallas_conv.py:32)
 KERNELS = ('sparse_conv', 'gather_rows')
@@ -132,15 +134,17 @@ def sparse_conv(x, nbr, w):
                          'of 16')
     from box2mask_torch.sparse import _build
     lib = _build.load('nmap_conv')
-    xb, wb = _bf16(x), _bf16(w)
+    xb, wb = pad_cin(_bf16(x), _bf16(w))
     nb = nbr.contiguous()
     out = torch.empty(nbr.shape[0], w.shape[2], dtype=torch.float32,
                       device=x.device)
+    wp = torch.empty(wpack_numel(*wb.shape), dtype=torch.bfloat16,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(lib.b2m_nmap_conv, xb.data_ptr(), nb.data_ptr(),
-                wb.data_ptr(), out.data_ptr(), nbr.shape[0], x.shape[0],
-                nbr.shape[1], x.shape[1], w.shape[2], stream)
+                wb.data_ptr(), wp.data_ptr(), out.data_ptr(), nbr.shape[0],
+                x.shape[0], nbr.shape[1], xb.shape[1], w.shape[2], stream)
     LAUNCHES['sparse_conv'] += 1
     return out
 

@@ -46,6 +46,7 @@ and last `{"ok": true, "device": {...}}`.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -153,6 +154,33 @@ def hits(kin, kout, **kw):
     return int(KC.key_conv_plain(ones, kin, kout, w, **kw).sum().item())
 
 
+FWD_M, DW_M = 128, 64           # output rows per tile: forward, dw kernel
+
+
+def tile_rows(hit_cols, m):
+    """Rows the tensor cores multiply at m-row tiles: the live (tile,
+    offset) pairs (at least one hit in the tile) x m. hit_cols yields one
+    (rows,) bool hit mask per offset."""
+    live = 0
+    for h in hit_cols:
+        h = torch.cat([h, h.new_zeros(-h.numel() % m)])
+        live += int(h.view(-1, m).any(1).sum())
+    return live * m
+
+
+def occupancy(kin, kout, m, kernel_size=3, stride_child=False,
+              stride_parent=False, scale=1, guard=True):
+    """Live (tile, offset) pairs x m of a key conv, from the twin's masks."""
+    return tile_rows((hit for hit, _ in KC._matches(
+        kin, kout, kernel_size, stride_child, stride_parent, scale, guard)),
+        m)
+
+
+def occ_txt(n_hits, rows):
+    return (f'occupancy {n_hits} hits / {rows} tile rows multiplied = '
+            f'{n_hits / max(rows, 1):.3f}')
+
+
 def bound(nbytes, flops):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -205,6 +233,7 @@ def kernel_phase(dev, g):
         w = (torch.randn(K, cin, cout, generator=g)
              * (2.0 / (K * cout)) ** 0.5).to('cuda')
         n_hits = hits(kin, kout, **kw)
+        occ = occ_txt(n_hits, occupancy(kin, kout, FWD_M, **kw))
         n_in = int((kin < SENT_KEY).sum())
         n_kout = int((kout < SENT_KEY).sum())
         dtypes = (torch.float32,) if mode == 'stem' else (
@@ -253,7 +282,7 @@ def kernel_phase(dev, g):
             log(f'[kernel] {row["name"]}: max_abs_err {row["max_abs_err"]:.3e}'
                 f' (tol {tol_txt}) kernel {ms:.3f} ms, plain twin '
                 f'{plain_ms:.3f} ms, bound {row["bound_ms"]:.4f} ms '
-                f'({row["bound_by"]}; {nbytes} B, {flops:.3e} FLOP)')
+                f'({row["bound_by"]}; {nbytes} B, {flops:.3e} FLOP); {occ}')
             rows.append(row)
     return rows
 
@@ -369,6 +398,9 @@ def dw_phase(dev, g):
             raise AssertionError(f'{name}: two launches differ')
         ms, plain_ms = time_ms(kern), time_ms(twin)
         n_hits = hits(kin, kout, **kw)
+        occ = occ_txt(n_hits, occupancy(kin, kout, DW_M, **kw))
+        if name == 'dw_same3_l0_96':
+            dw_split(kern, name)
         n_in = int((kin < SENT_KEY).sum())
         n_kout = int((kout < SENT_KEY).sum())
         # least traffic: valid x rows and g rows as the bf16 the kernel
@@ -382,9 +414,28 @@ def dw_phase(dev, g):
                    bytes=nbytes, flops=flops, hits=n_hits)
         log(f'[kernel] {name}: max_abs_err {err:.3e} (tol {tol_txt}) kernel '
             f'{ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound '
-            f'{bound_ms:.4f} ms ({bound_by}; {nbytes} B, {flops:.3e} FLOP)')
+            f'{bound_ms:.4f} ms ({bound_by}; {nbytes} B, {flops:.3e} FLOP); '
+            f'{occ}')
         rows.append(row)
     return rows
+
+
+def dw_split(fn, name):
+    """Device time of one dw launch by kernel (match table, pass 1, pass 2),
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    agg = {}
+    for e in prof.events():
+        if e.device_type.name == 'CUDA':
+            m = re.search(r'(\w+_kernel)', e.name)
+            k = m.group(1) if m else e.name[:40]
+            agg[k] = agg.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    log(f'[dw_split] {name}: device ms by kernel ' + json.dumps(agg))
 
 
 def train_batches(smi):
@@ -708,6 +759,8 @@ def nmap_kernel_phase(dev, g, smi):
         w = (torch.randn(nbr.shape[1], cin, cout, generator=g)
              * (2.0 / (nbr.shape[1] * cout)) ** 0.5).to('cuda')
         n_hits = int((nbr < vin).sum())
+        occ = occ_txt(n_hits, tile_rows(
+            (nbr[:, k] < vin for k in range(nbr.shape[1])), FWD_M))
         n_in = int(maps[f'num{level}'])
         main = torch.float32 if key == 'nmap5_0' else torch.bfloat16
         for dt in (torch.float32, torch.bfloat16):
@@ -739,7 +792,7 @@ def nmap_kernel_phase(dev, g, smi):
                 f'{F32_TOL:g} * max|twin| = {F32_TOL * ref:.3e}) kernel '
                 f'{ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound '
                 f'{bound_ms:.4f} ms ({bound_by}; {nbytes} B, {flops:.3e} '
-                f'FLOP)')
+                f'FLOP); {occ}')
     for name, level, cout in (('nmap_gather_up1_0_96', 0, 96),
                               ('nmap_gather_up4_3_256', 3, 256)):
         U = B * pads[level + 1]

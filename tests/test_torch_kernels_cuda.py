@@ -53,22 +53,44 @@ def padded(keys, pad=PAD):
     return out
 
 
-def case(mode, level=0, cin=16, cout=32, seed=0):
+def lattice_keys(rng, n, level):
+    """n keys of level `level` on a lattice of spacing 3 * 2^level: no key
+    has a neighbour, so a 3^3 conv's tiles have exactly one live offset."""
+    step = 3 << level
+    c = np.unique(step * rng.integers(0, 1024 // step, (3 * n, 3)), axis=0)
+    keys = np.sort((c[:, 0] << 20) | (c[:, 1] << 10) | c[:, 2])
+    return keys[np.sort(rng.permutation(len(keys))[:n])].astype(np.int32)
+
+
+# key layouts: 'border' (corner clusters, pad 512), 'pad200' (200-row pads:
+# n_out not a multiple of the kernels' 128-row tile, tiles that straddle the
+# two scenes), 'sent_tiles' (scene 1 holds 40 keys: whole tiles of SENT
+# rows), 'isolated' (lattice keys: one live offset per tile, fewer than the
+# ring's stages)
+LAYOUTS = ('border', 'pad200', 'sent_tiles', 'isolated')
+
+
+def case(mode, level=0, cin=16, cout=32, seed=0, layout='border'):
     """(x, keys_in_b, keys_out_b, w, static kwargs) for one mode, B = 2."""
     rng = np.random.default_rng(seed)
+    pad = 200 if layout == 'pad200' else PAD
     kin, kout, xs = [], [], []
     for b in range(2):
-        fine = border_keys(rng, PAD - 60 - 90 * b, level)
+        n_keys = pad - 60 - 90 * b if pad == PAD else 150 - 40 * b
+        if layout == 'sent_tiles' and b == 1:
+            n_keys = 40
+        fine = (lattice_keys if layout == 'isolated' else border_keys)(
+            rng, n_keys, level)
         coarse = floor_keys(fine, level + 1)
         if mode == 'up':        # coarse features, fine output rows
-            kin.append(padded(coarse))
-            kout.append(padded(fine))
+            kin.append(padded(coarse, pad))
+            kout.append(padded(fine, pad))
             n = len(coarse)
         else:
-            kin.append(padded(fine))
-            kout.append(padded(coarse if mode == 'down' else fine))
+            kin.append(padded(fine, pad))
+            kout.append(padded(coarse if mode == 'down' else fine, pad))
             n = len(fine)
-        x = rng.normal(size=(PAD, cin)).astype(np.float32)
+        x = rng.normal(size=(pad, cin)).astype(np.float32)
         x[n:] = 0
         xs.append(x)
     K = {'same': 27, 'stem': 125}.get(mode, 8)
@@ -114,21 +136,35 @@ def cuda():
 
 # (mode, level, cin, cout) at the other widths of SelectionNet: the 64-wide
 # output tile (enc2 blocks, down3), cin 128 (dec0_block0, enc3), the 128-
-# and 256-wide tiles and the 32-wide stem output
+# and 256-wide tiles and the 32-wide stem output; then the tile's channel
+# paths: cin 3 (plain loads), 6 (4-byte copies), 16 and 32 (several
+# offsets per ring stage), 160 and 256 (two cin chunks), cout 16..256
 WIDTHS = [('same', 1, 32, 64), ('same', 0, 64, 64), ('down', 1, 64, 64),
           ('same', 0, 128, 96), ('same', 1, 128, 128), ('up', 0, 256, 256),
-          ('stem', 0, 6, 32)]
+          ('stem', 0, 6, 32), ('same', 0, 3, 16), ('same', 1, 6, 32),
+          ('same', 0, 16, 48), ('down', 0, 32, 128), ('same', 0, 96, 256),
+          ('up', 1, 64, 16), ('same', 0, 160, 96), ('same', 1, 256, 128),
+          ('stem', 0, 3, 16)]
+# the ring's edges (LAYOUTS) at a narrow and a wide channel count
+EDGES = [(m, 0, lay, ci, co) for lay in LAYOUTS[1:] for m in ('same', 'up')
+         for ci, co in ((16, 32), (96, 96))] + [
+    ('stem', 0, lay, 6, 32) for lay in LAYOUTS[1:]] + [
+    ('down', 0, lay, 32, 32) for lay in LAYOUTS[1:]]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('mode,level,dtype,cin,cout', [
-    (m, l, d, 96, 96) for m, l in MODES for d in ('f32', 'bf16')] + [
-    ('stem', 0, 'f32', 6, 96)] + [          # the stem's output is always f32
-    (m, l, d, ci, co) for m, l, ci, co in WIDTHS
+@pytest.mark.parametrize('mode,level,dtype,cin,cout,layout', [
+    (m, l, d, 96, 96, 'border') for m, l in MODES for d in ('f32', 'bf16')] + [
+    ('stem', 0, 'f32', 6, 96, 'border')] + [   # the stem's output is f32
+    (m, l, d, ci, co, 'border') for m, l, ci, co in WIDTHS
+    for d in (('f32',) if m == 'stem' else ('f32', 'bf16'))] + [
+    (m, l, d, ci, co, lay) for m, l, lay, ci, co in EDGES
     for d in (('f32',) if m == 'stem' else ('f32', 'bf16'))])
 def test_kernel_matches_plain_twin_on_card(cuda, mode, level, dtype, cin,
-                                           cout):
-    x, kin, kout, w, kw = case(mode, level, cin=cin, cout=cout, seed=level)
+                                           cout, layout):
+    """Each mode against its twin; two launches bit-identical."""
+    x, kin, kout, w, kw = case(mode, level, cin=cin, cout=cout, seed=level,
+                               layout=layout)
     xt = torch.from_numpy(x).to(cuda)
     if dtype == 'bf16':
         xt = xt.to(torch.bfloat16)
@@ -137,16 +173,21 @@ def test_kernel_matches_plain_twin_on_card(cuda, mode, level, dtype, cin,
     w_t = torch.from_numpy(w).to(cuda)
     before = KC.LAUNCHES[mode]
     if mode == 'stem':
-        got = KC.key_conv_stem(xt, kin_t, w_t)
+        kern = lambda: KC.key_conv_stem(xt, kin_t, w_t)     # noqa: E731
         want = KC.key_conv_plain(xt, kin_t, kout_t, w_t,
                                  out_dtype=torch.float32, **kw)
     else:
-        got = KC.key_conv(xt, kin_t, kout_t, w_t, **kw)
+        kern = lambda: KC.key_conv(xt, kin_t, kout_t, w_t, **kw)  # noqa
         want = KC.key_conv_plain(xt, kin_t, kout_t, w_t, **kw)
+    got = kern()
     torch.cuda.synchronize()
     assert KC.LAUNCHES[mode] == before + 1
+    assert got.dtype == want.dtype
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                  dtype)
+    assert torch.equal(got, kern())
+    sent = kout_t >= SENT_KEY                   # padding rows: exactly 0
+    assert sent.any() and not got[sent].float().any()
 
 
 # dw at the main path's widths (phase 5 of chip_smoke.py) plus cout 64 and
@@ -154,17 +195,23 @@ def test_kernel_matches_plain_twin_on_card(cuda, mode, level, dtype, cin,
 DW_WIDTHS = [('same', 0, 96, 96), ('same', 0, 128, 96), ('same', 2, 64, 64),
              ('same', 1, 256, 256), ('same', 1, 32, 64), ('same', 0, 128, 128),
              ('down', 0, 32, 32), ('down', 1, 64, 64), ('down', 1, 128, 128),
-             ('up', 0, 96, 96), ('up', 1, 256, 256), ('up', 0, 128, 64)]
+             ('up', 0, 96, 96), ('up', 1, 256, 256), ('up', 0, 128, 64),
+             ('same', 0, 16, 16), ('same', 0, 6, 32), ('same', 0, 3, 48),
+             ('same', 0, 160, 96)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('xdtype', ['f32', 'bf16'])
-@pytest.mark.parametrize('mode,level,cin,cout', DW_WIDTHS)
+@pytest.mark.parametrize('mode,level,cin,cout,layout', [
+    w + ('border',) for w in DW_WIDTHS] + [
+    (m, 0, ci, co, lay) for lay in LAYOUTS[1:] for m in ('same', 'down')
+    for ci, co in ((32, 32), (96, 96))])
 def test_dw_kernel_matches_plain_twin_on_card(cuda, mode, level, cin, cout,
-                                              xdtype):
+                                              layout, xdtype):
     """dw is f32 from bf16-rounded x and g on both sides: 1e-5 of max |dw|
-    (f32 summation order)."""
-    x, kin, kout, w, kw = case(mode, level, cin=cin, cout=cout, seed=level)
+    (f32 summation order); two launches bit-identical."""
+    x, kin, kout, w, kw = case(mode, level, cin=cin, cout=cout, seed=level,
+                               layout=layout)
     xt = torch.from_numpy(x).to(cuda)
     if xdtype == 'bf16':
         xt = xt.to(torch.bfloat16)
@@ -309,8 +356,9 @@ def test_nmap_conv_kernel_matches_plain_twin_on_card(cuda, name, level, cin,
     assert PCV.LAUNCHES['sparse_conv'] == before + 1
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert_close(got.cpu().numpy(), want.cpu().numpy(), 'f32')
-    pad_rows = (nbr >= x.shape[0]).all(1)
+    pad_rows = (nbr >= x.shape[0]).all(1)       # sentinel-only rows
     assert pad_rows.any() and not got[pad_rows].any()
+    assert torch.equal(got, PCV.sparse_conv(x, nbr, w))
 
 
 @pytest.mark.cuda
