@@ -51,19 +51,30 @@
 // Each block writes its slab to partials[s]; pass 2 adds the S partials in
 // slice order. S is one wave of blocks (the occupancy API's count), which
 // keeps the partials small. No atomics: the result is the same bit for bit
-// from run to run. The stem's dw (K = 125, cin <= 8, cout <= 32) keeps its
-// first design: a block's whole (25 offsets, cin, cout) share of dw in
-// shared memory, so each g tile is loaded once per 25 offsets.
+// from run to run.
+//
+// Stem weight-gradient design (K = 125, cin <= 8, cout 16 or 32). Bound on
+// the H100: the bytes (x, keys and the f32 g the backward gives read once,
+// dw written once); what held a first design 200x above it was a 125-offset
+// match table written to device memory and read back, a separate g cast
+// pass and a serial search-gather-multiply chain per offset. Here no table:
+// the 5 offsets dz = -2..2 of one (dx, dy) are consecutive packed keys, so a
+// block (one dx group of 25 offsets, a contiguous run of row tiles) makes
+// one search per (row, dy), mostly in shared memory over samples of the
+// only stretch of keys its queries can reach, and reads the 5 entries from
+// there; g is rounded to bf16 in the kernel; each tile's im2col (64 rows x
+// 25 offsets x 8 channels) is gathered by cp.async one iteration ahead and
+// multiplied as im2col^T g, the TPU kernel's product, on mma.sync; one wave
+// of blocks, pass 2 in slice order. What holds it now is each block's
+// chain of search loads per tile, which other blocks on the SM only partly
+// cover (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "conv_tile.cuh"
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -499,117 +510,356 @@ int launch_dw(const void* x, const void* table, const void* gr, void* part,
   return launch_dw_u<16, 16>(x, table, gr, part, g, n_pad, p, slices, s);
 }
 
-constexpr int STEM_TILE = 64;    // rows per stem dw tile
-constexpr int STEM_THREADS = 128;
-constexpr int STEM_KG = 25;      // stem offsets per block (125 = 5 groups)
-constexpr int STEM_CIN = 8;      // stem input channels held (cin <= 8)
-constexpr int STEM_CO = 32;      // stem output channels held (cout <= 32)
+// ---------------------------------------------------------------- stem dw
+// The stem's dw, dw[k, c, o] = sum_v im2col[v, (k, c)] * g[v, o] over the
+// 125 offsets of the 5^3 stem (cin <= 8, cout 16 or 32). Block (dx group
+// gx, slice s) owns the 25 offsets of one dx, (gx, dy, dz) x-major, over a
+// contiguous run of row tiles; per tile it builds a (64 rows x 25 offsets x
+// 8 channels) bf16 im2col in shared memory and multiplies its transpose
+// with the tile's g on the tensor cores.
+constexpr int STEM_M = 64;                  // rows per tile (product depth)
+constexpr int STEM_THREADS = 256;           // 8 warps
+constexpr int STEM_G = 25;                  // offsets per block: one dx
+constexpr int STEM_UM = 13;                 // 16-column units of the im2col
+constexpr int STEM_LDA = STEM_UM * 16 + 8;  // im2col row stride (bf16)
+constexpr int STEM_ITEMS = STEM_M * 5;      // (row, dy) searches per tile
+constexpr int STEM_SAMPLES = 1024;          // key samples held per block
 
-// STEM_TILE gathered rows of x, channels 0 .. 16, into xs (row stride LDX)
-// as bf16; 0 for a row whose src is -1 and for channels >= cin.
-template <int LDX>
-__device__ __forceinline__ void stem_gather(const __nv_bfloat16* __restrict__ x,
-                                            const int* src, int cin,
-                                            __nv_bfloat16* xs) {
-  for (int i = threadIdx.x; i < STEM_TILE * 2; i += STEM_THREADS) {
-    const int r = i / 2, c = (i % 2) * 8, s = src[r];
-    union { uint4 u; unsigned short h[8]; } val;   // 8 bf16 bit patterns
-    val.u = make_uint4(0, 0, 0, 0);
-    if (s >= 0) {
-      const unsigned short* ph =
-          reinterpret_cast<const unsigned short*>(x + (size_t)s * cin + c);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (c + e < cin) val.h[e] = ph[e];
+// two stages of im2col, g and matches (an int and a byte per item), and
+// the samples: 71-73 KB, three blocks per SM
+int stem_dw_bytes(int cout) {
+  return 2 * (STEM_M * STEM_LDA * 2 + STEM_M * (cout + 8) * 2 +
+              STEM_ITEMS * 5) + STEM_SAMPLES * 4;
+}
+
+// Pass 1 of the stem's dw. Block (dx group gx, slice s) owns a contiguous
+// run of tiles. Per tile, each (row, dy) item makes ONE search: a key packs
+// x << 20 | y << 10 | z, so the queries of dz = -2..2 (within the z range:
+// the axis guard) are consecutive integers and their matches are
+// consecutive entries of the scene's sorted key row. The lower bound of the
+// first query, then the 5 entries from there, give all 5 matches. Every
+// lower bound of the block's queries lies in one stretch [P0, P1] of the
+// flat key array (the lower bounds of its first row's least and its last
+// row's greatest query), so the search runs over every 2^sl-th key of that
+// stretch in shared memory (at most STEM_SAMPLES, loaded once) and then
+// over the < 2^sl keys between two samples in device memory: at the main
+// path's shapes sl = 4, one cache line, where a search of the whole row
+// was a chain of ~17 dependent loads. An item keeps its first entry p and
+// a 5-bit hit mask in shared memory; one iteration later each hit moves its
+// x row (8 bf16 channels, 16 bytes) into the im2col by cp.async,
+// zero-filled for a miss. The tile's g rows (f32 or bf16; zeros for SENT
+// rows) are loaded into registers and rounded to bf16 (nearest even) on
+// their way into shared memory. Per iteration i: the gathers of tile i + 1
+// are issued, then tile i + 2 is searched and tile i multiplied while they
+// fly (two im2col and g stages, two match slots). 13 x cout/16 units (two
+// offsets x 8 channels, 16 outputs) are spread over the 8 warps; mma.sync
+// m16n8k16 with both
+// operands from ldmatrix.trans, f32 accumulators in registers across all
+// the block's tiles. No (unit, 16-row step) is skipped: a test per step,
+// whether on the hits in shared memory or on bits set by warp ballots at
+// search time, cost more than the products it saved (85% of the im2col is
+// zeros). The block writes its (25, cin, cout) slab to part[s].
+template <int NO, typename GT>
+__global__ void __launch_bounds__(STEM_THREADS, 3)
+key_conv_stem_dw_kernel(const __nv_bfloat16* __restrict__ x,
+                        const int* __restrict__ keys,
+                        const GT* __restrict__ gr, float* __restrict__ part,
+                        int n, int pad, int cin) {
+  constexpr int LDG = NO + 8;
+  constexpr int NBS = NO / 16;
+  constexpr int UNITS = STEM_UM * NBS;
+  constexpr int UPW = (UNITS + 7) / 8;
+  constexpr int GCH = NO / 8;                 // 8-value g chunks per row
+  constexpr int NS = (STEM_ITEMS + STEM_THREADS - 1) / STEM_THREADS;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* as0 = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* gs0 = as0 + 2 * STEM_M * STEM_LDA;
+  int* mp0 = reinterpret_cast<int*>(gs0 + 2 * STEM_M * LDG);
+  unsigned char* mm0 = reinterpret_cast<unsigned char*>(mp0 + 2 * STEM_ITEMS);
+  int* samp = reinterpret_cast<int*>(mm0 + 2 * STEM_ITEMS);
+  __shared__ int stretch[2];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int dx = (int)blockIdx.x - 2;
+  const int n_tiles = (n + STEM_M - 1) / STEM_M;
+  const int per = (n_tiles + gridDim.y - 1) / gridDim.y;
+  const int t0 = blockIdx.y * per;
+  const int n_my = max(0, min(per, n_tiles - t0));
+
+  // P0, P1: the lower bounds of key[R0] + (dx, -2, -2) and key[R1 - 1] +
+  // (dx, 2, 2) in their scenes' rows (packed sums: no overflow, SENT = 2^30)
+  if (tid < 2) {
+    int pos = 0;
+    if (n_my > 0) {
+      const int v = tid ? min((t0 + n_my) * STEM_M, n) - 1 : t0 * STEM_M;
+      const int* kr = keys + (size_t)(v / pad) * pad;
+      const int q = __ldg(keys + v) + dx * (1 << (2 * kAxisBits)) +
+                    (tid ? 1 : -1) * (2 * (1 << kAxisBits) + 2);
+      int b = 0;
+      for (int len = pad; len > 1; len -= len >> 1)
+        if (__ldg(kr + b + (len >> 1)) < q) b += len >> 1;
+      pos = (v / pad) * pad + b + (__ldg(kr + b) < q);
     }
-    *reinterpret_cast<uint4*>(xs + r * LDX + c) = val.u;
+    stretch[tid] = pos;
+  }
+  // im2col columns 200 .. 207 (the last unit's missing 26th offset): zeros
+  for (int i = tid; i < 2 * STEM_M; i += STEM_THREADS)
+    *reinterpret_cast<uint4*>(as0 + i * STEM_LDA + STEM_G * 8) =
+        make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const int P0 = stretch[0], P1 = stretch[1];
+  int sl = 0;
+  while ((P1 - P0 + (1 << sl) - 1) >> sl > STEM_SAMPLES) ++sl;
+  const int T = (P1 - P0 + (1 << sl) - 1) >> sl;
+  for (int i = tid; i < T; i += STEM_THREADS)
+    samp[i] = __ldg(keys + P0 + ((size_t)i << sl));
+  __syncthreads();            // the samples before any search reads them
+
+  // the matches of the block's tile j into slot j % 2: per item the first
+  // entry p and the hit mask of dz -2..2
+  auto search = [&](int j) {
+    if (j >= n_my) return;
+    const int row0 = (t0 + j) * STEM_M;
+    // per item: q (-1: nothing can match), the key's z, its scene's row
+    // end, and the lower bound's range [a, hi]: searched first over the m
+    // samples sj .. of its scene in the stretch, then over keys
+    int q[NS], zf[NS], end[NS], a[NS], m[NS], sj[NS], hi[NS];
+#pragma unroll
+    for (int t = 0; t < NS; ++t) {
+      const int it = tid + t * STEM_THREADS, r = it % STEM_M;
+      const int dy = it / STEM_M - 2, v = row0 + r;
+      q[t] = -1;
+      zf[t] = end[t] = a[t] = m[t] = sj[t] = hi[t] = 0;
+      if (it < STEM_ITEMS && v < n) {
+        const int key = __ldg(keys + v);
+        const int xf = key >> (2 * kAxisBits);
+        const int yf = (key >> kAxisBits) & (kAxisMax - 1);
+        zf[t] = key & (kAxisMax - 1);
+        if (key < kSentKey && xf + dx >= 0 && xf + dx < kAxisMax &&
+            yf + dy >= 0 && yf + dy < kAxisMax) {
+          q[t] = key + dx * (1 << (2 * kAxisBits)) + dy * (1 << kAxisBits) +
+                 max(-2, -zf[t]);
+          const int rb = (v / pad) * pad;
+          end[t] = rb + pad;
+          a[t] = max(P0, rb);                 // the lower bound is in
+          hi[t] = min(P1, rb + pad);          // [a, hi]
+          sj[t] = (a[t] - P0 + (1 << sl) - 1) >> sl;
+          m[t] = hi[t] > a[t] ? max(0, ((hi[t] - 1 - P0) >> sl) + 1 - sj[t])
+                              : 0;
+        }
+      }
+    }
+    // the last sample < q (index sb), shared memory
+    int sb[NS], cnt[NS];
+#pragma unroll
+    for (int t = 0; t < NS; ++t) sb[t] = 0, cnt[t] = m[t];
+    for (int len = T; len > 1; len -= len >> 1) {
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        if (q[t] < 0 || cnt[t] <= 1) continue;
+        const int half = cnt[t] >> 1;
+        if (samp[sj[t] + sb[t] + half] < q[t]) sb[t] += half;
+        cnt[t] -= half;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NS; ++t) {
+      if (q[t] < 0) continue;
+      if (m[t] > 0 && samp[sj[t] + sb[t]] < q[t]) {
+        const int s = P0 + ((sj[t] + sb[t]) << sl);
+        a[t] = s + 1;
+        cnt[t] = min(s + (1 << sl), hi[t]) - a[t];
+      } else {
+        cnt[t] = (m[t] > 0 ? P0 + (sj[t] << sl) : hi[t]) - a[t];
+      }
+    }
+    // the lower bound among the < 2^sl keys left, device memory
+    for (int len = 1 << sl; len > 1; len -= len >> 1) {
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        if (q[t] < 0 || cnt[t] <= 1) continue;
+        const int half = cnt[t] >> 1;
+        if (__ldg(keys + a[t] + half) < q[t]) a[t] += half;
+        cnt[t] -= half;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NS; ++t) {
+      const int it = tid + t * STEM_THREADS;
+      if (it >= STEM_ITEMS) continue;
+      int p = 0, mask = 0;
+      if (q[t] >= 0) {
+        p = a[t] + (cnt[t] >= 1 && __ldg(keys + a[t]) < q[t]);
+        const int zlo = max(-2, -zf[t]), zhi = min(2, kAxisMax - 1 - zf[t]);
+        // entry p + e matches dz = zlo + (key - q) where that is in range;
+        // the hits are entries p, p + 1, ... in dz order
+#pragma unroll
+        for (int e = 0; e < 5; ++e) {
+          const int d = p + e < end[t] ? __ldg(keys + p + e) - q[t] : -1;
+          if (d >= 0 && d <= zhi - zlo) mask |= 1 << (zlo + d + 2);
+        }
+      }
+      mp0[(j & 1) * STEM_ITEMS + it] = p;
+      mm0[(j & 1) * STEM_ITEMS + it] = static_cast<unsigned char>(mask);
+    }
+  };
+
+  // tile j's im2col into stage j % 2 from its matches: the k-th hit of an
+  // item is entry p + k; zeros for a miss
+  auto gather = [&](int j) {
+    if (j >= n_my) return;
+    __nv_bfloat16* as = as0 + (j & 1) * STEM_M * STEM_LDA;
+    for (int it = tid; it < STEM_ITEMS; it += STEM_THREADS) {
+      const int p = mp0[(j & 1) * STEM_ITEMS + it];
+      const int mask = mm0[(j & 1) * STEM_ITEMS + it];
+      __nv_bfloat16* dst = as + (it % STEM_M) * STEM_LDA + (it / STEM_M) * 5 * 8;
+#pragma unroll
+      for (int u = 0; u < 5; ++u) {
+        const bool hit = (mask >> u) & 1;
+        const int src = p + __popc(mask & ((1 << u) - 1));
+        hopper::cp_async16(dst + u * 8, hit ? x + (size_t)src * 8 : x,
+                           hit ? 16 : 0);
+      }
+    }
+  };
+
+  // tile j's g: thread t < 64 * GCH holds 8 values of row t / GCH in
+  // registers (zeros for a SENT row or a row past n), then stores them as
+  // bf16 into stage j % 2
+  const bool g_thread = tid < STEM_M * GCH;
+  const int g_row = tid / GCH, g_col = (tid % GCH) * 8;
+  float4 gf[2];
+  uint4 gb;
+  auto load_g = [&](int j) {
+    gf[0] = gf[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    gb = make_uint4(0, 0, 0, 0);
+    if (!g_thread || j >= n_my) return;
+    const int v = (t0 + j) * STEM_M + g_row;
+    if (v >= n || __ldg(keys + v) >= kSentKey) return;
+    const GT* src = gr + (size_t)v * NO + g_col;
+    if constexpr (sizeof(GT) == 4) {
+      gf[0] = __ldg(reinterpret_cast<const float4*>(src));
+      gf[1] = __ldg(reinterpret_cast<const float4*>(src) + 1);
+    } else {
+      gb = __ldg(reinterpret_cast<const uint4*>(src));
+    }
+  };
+  auto store_g = [&](int j) {
+    if (!g_thread || j >= n_my) return;
+    uint4 val = gb;
+    if constexpr (sizeof(GT) == 4) {
+      const __nv_bfloat162 h0 = __float22bfloat162_rn(make_float2(gf[0].x, gf[0].y));
+      const __nv_bfloat162 h1 = __float22bfloat162_rn(make_float2(gf[0].z, gf[0].w));
+      const __nv_bfloat162 h2 = __float22bfloat162_rn(make_float2(gf[1].x, gf[1].y));
+      const __nv_bfloat162 h3 = __float22bfloat162_rn(make_float2(gf[1].z, gf[1].w));
+      val = make_uint4(*reinterpret_cast<const uint32_t*>(&h0),
+                       *reinterpret_cast<const uint32_t*>(&h1),
+                       *reinterpret_cast<const uint32_t*>(&h2),
+                       *reinterpret_cast<const uint32_t*>(&h3));
+    }
+    *reinterpret_cast<uint4*>(gs0 + (j & 1) * STEM_M * LDG + g_row * LDG +
+                              g_col) = val;
+  };
+
+  // this warp's units: im2col columns 16 um .. (offsets 2 um, 2 um + 1),
+  // outputs 16 nb ..
+  int u_m[UPW], u_n[UPW];
+#pragma unroll
+  for (int u = 0; u < UPW; ++u) {
+    const int unit = warp + 8 * u;
+    u_m[u] = unit < UNITS ? unit / NBS : -1;
+    u_n[u] = (unit % NBS) * 16;
+  }
+  const int a_off = ((lane & 7) + ((lane >> 4) & 1) * 8) * STEM_LDA +
+                    ((lane >> 3) & 1) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDG +
+                    ((lane >> 4) & 1) * 8;
+  float acc[UPW][2][4];
+#pragma unroll
+  for (int u = 0; u < UPW; ++u)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.0f;
+
+  auto multiply = [&](int i) {
+    const __nv_bfloat16* as = as0 + (i & 1) * STEM_M * STEM_LDA + a_off;
+    const __nv_bfloat16* gs = gs0 + (i & 1) * STEM_M * LDG + b_off;
+#pragma unroll
+    for (int u = 0; u < UPW; ++u) {
+      if (u_m[u] < 0) continue;
+#pragma unroll
+      for (int ks = 0; ks < STEM_M / 16; ++ks) {
+        uint32_t af[4], bf[4];
+        ldsm_x4_trans(af, as + u_m[u] * 16 + ks * 16 * STEM_LDA);
+        ldsm_x4_trans(bf, gs + u_n[u] + ks * 16 * LDG);
+        mma16816(acc[u][0], af, bf[0], bf[1]);
+        mma16816(acc[u][1], af, bf[2], bf[3]);
+      }
+    }
+  };
+
+  search(0);
+  search(1);
+  load_g(0);
+  __syncthreads();            // the matches of tiles 0 and 1
+  gather(0);
+  hopper::cp_async_commit();
+  store_g(0);
+  for (int i = 0; i < n_my; ++i) {
+    hopper::cp_async_wait(0);
+    __syncthreads();          // tile i landed, tile i + 1's matches written,
+                              // tile i - 1's products and gathers done
+    gather(i + 1);
+    hopper::cp_async_commit();
+    load_g(i + 1);
+    search(i + 2);
+    multiply(i);
+    store_g(i + 1);
+  }
+
+  // D row m = (lane >> 2) + 8 h of a unit is offset 2 um + h, channel
+  // lane >> 2; column 16 nb + 8 j + 2 (lane & 3) (+1)
+  const int c = lane >> 2;
+#pragma unroll
+  for (int u = 0; u < UPW; ++u) {
+    if (u_m[u] < 0 || c >= cin) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = 2 * u_m[u] + h;
+      if (l >= STEM_G) continue;
+      float* dst = part + (((size_t)blockIdx.y * 125 + blockIdx.x * STEM_G + l) *
+                           cin + c) * NO + u_n[u] + (lane & 3) * 2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<float2*>(dst + j * 8) =
+            make_float2(acc[u][j][2 * h], acc[u][j][2 * h + 1]);
+    }
   }
 }
 
-// Pass 1 of the stem's dw. Block (s, kg): offsets kg*25 .. kg*25 + 24 over
-// row tiles s, s + S, ..., matches from the table (rows of n_pad entries);
-// the block's share of dw stays in shared memory (acc[k][c][o]); per tile
-// the g rows are loaded once, then per offset the matched x rows (one
-// 16-wide chunk, zeros past cin) are multiplied on the tensor cores, warp w
-// owning output channels 16w .. 16w + 15. Writes part[s][k] for its 25
-// offsets.
-__global__ void __launch_bounds__(STEM_THREADS)
-key_conv_stem_dw_kernel(const __nv_bfloat16* __restrict__ x,
-                        const int* __restrict__ keys,
-                        const int* __restrict__ table,
-                        const __nv_bfloat16* __restrict__ gr,
-                        float* __restrict__ part, Geom g, int n_pad) {
-  constexpr int LDX = 16 + 8;
-  constexpr int LDG = STEM_CO + 8;
-  constexpr int GV = STEM_CO / 8;
-  __shared__ __align__(32) __nv_bfloat16 xs[STEM_TILE * LDX];
-  __shared__ __align__(32) __nv_bfloat16 gs[STEM_TILE * LDG];
-  __shared__ __align__(32) float stage[STEM_CO / 16][16 * 16];
-  __shared__ float acc[STEM_KG * STEM_CIN * STEM_CO];
-  __shared__ int src[STEM_TILE];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n = g.B * g.pad_out;
-  const int n_tiles = (n + STEM_TILE - 1) / STEM_TILE;
-  const int k0 = blockIdx.y * STEM_KG;
-  const int gv = g.cout / 8;
-  for (int i = tid; i < STEM_KG * STEM_CIN * STEM_CO; i += STEM_THREADS)
-    acc[i] = 0.0f;
-
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int row0 = t * STEM_TILE;
-    const int key = tid < STEM_TILE && row0 + tid < n ? keys[row0 + tid]
-                                                      : kSentKey;
-    __syncthreads();                  // last tile's readers of smem done
-    for (int i = tid; i < STEM_TILE * GV; i += STEM_THREADS) {
-      const int r = i / GV, v = i % GV;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (v < gv && row0 + r < n && keys[row0 + r] < kSentKey)
-        val = __ldg(reinterpret_cast<const uint4*>(
-            gr + (size_t)(row0 + r) * g.cout + v * 8));
-      *reinterpret_cast<uint4*>(gs + r * LDG + v * 8) = val;
-    }
-    if (!__syncthreads_or(key < kSentKey)) continue;
-
-    for (int kk = 0; kk < STEM_KG; ++kk) {
-      const int hit = key < kSentKey
-          ? __ldg(table + (size_t)(k0 + kk) * n_pad + row0 + tid) : -1;
-      __syncthreads();                // last offset's readers of xs done
-      if (tid < STEM_TILE) src[tid] = hit;
-      if (!__syncthreads_or(hit >= 0)) continue;
-      stem_gather<LDX>(x, src, g.cin, xs);
-      __syncthreads();
-      if (warp < g.cout / 16) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> f;
-        wmma::fill_fragment(f, 0.0f);
-#pragma unroll
-        for (int r0 = 0; r0 < STEM_TILE; r0 += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> bf;
-          wmma::load_matrix_sync(a, xs + r0 * LDX, LDX);
-          wmma::load_matrix_sync(bf, gs + r0 * LDG + warp * 16, LDG);
-          wmma::mma_sync(f, a, bf, f);
-        }
-        float* st = stage[warp];
-        wmma::store_matrix_sync(st, f, 16, wmma::mem_row_major);
-        __syncwarp();
-        // each (c, o) of dw has one owner lane: no atomics
-        for (int e = lane; e < 16 * g.cin; e += 32)
-          acc[(kk * STEM_CIN + e / 16) * STEM_CO + warp * 16 + e % 16] +=
-              st[e];
-        __syncwarp();
-      }
-    }
-  }
-  __syncthreads();
-  float* dst = part + ((size_t)blockIdx.x * 125 + k0) * g.cin * g.cout;
-  for (int i = tid; i < STEM_KG * g.cin * g.cout; i += STEM_THREADS) {
-    const int kk = i / (g.cin * g.cout), c = (i / g.cout) % g.cin,
-              o = i % g.cout;
-    dst[i] = acc[(kk * STEM_CIN + c) * STEM_CO + o];
-  }
+template <int NO, typename GT>
+int launch_stem_dw(const void* x, const void* keys, const void* g, void* part,
+                   int n, int pad, int cin, int& slices, cudaStream_t stream) {
+  constexpr auto kernel = key_conv_stem_dw_kernel<NO, GT>;
+  const int bytes = stem_dw_bytes(NO);
+  int rc = conv_tile::allow_smem<kernel>(bytes);
+  if (rc) return rc;
+  // one wave: as many slices as the SMs hold blocks of the 5 dx groups
+  int per_sm = 1, sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, STEM_THREADS,
+                                                bytes);
+  const int n_tiles = (n + STEM_M - 1) / STEM_M;
+  int S = (per_sm > 0 ? per_sm : 1) * sms / 5;
+  if (S > slices) S = slices;
+  if (S > n_tiles) S = n_tiles;
+  slices = S < 1 ? 1 : S;
+  kernel<<<dim3(5, slices), STEM_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(keys),
+      static_cast<const GT*>(g), static_cast<float*>(part), n, pad, cin);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The matched input row (or -1) of every output row at every offset:
@@ -724,30 +974,29 @@ int b2m_key_conv_dw(const void* x, const void* keys_in, const void* keys_out,
                     n, slices, s);
 }
 
-// dw of the 5^3 stem: x (B*pad, cin <= 8) bf16; g (B*pad, cout) bf16 with
-// cout 16 or 32; part (slices, 125, cin, cout) f32 and table (125, n_pad)
-// i32 scratch (n_pad as b2m_key_conv_dw); dw (125, cin, cout) f32.
+// dw of the 5^3 stem: x (B*pad, 8) bf16, the cin <= 8 channels zero-padded
+// to 8; keys (B, pad) i32 sorted, SENT-padded; g (B*pad, cout) f32 (g_bf16
+// = 0) or bf16, cout 16 or 32, rounded to bf16 in the kernel; part (slices,
+// 125, cin, cout) f32 scratch; dw (125, cin, cout) f32. The launch uses at
+// most `slices` row slices (as many as one wave of blocks holds).
 int b2m_key_conv_stem_dw(const void* x, const void* keys, const void* g,
-                         void* part, void* dw, void* table, int B, int pad,
-                         int cin, int cout, int slices, void* stream) {
+                         void* part, void* dw, int B, int pad, int cin,
+                         int cout, int g_bf16, int slices, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cin < 1 || cin > STEM_CIN || (cout != 16 && cout != STEM_CO) ||
-      slices < 1)
+  if (cin < 1 || cin > 8 || (cout != 16 && cout != 32) || slices < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t n = (size_t)125 * cin * cout;
   if (B * pad == 0) {
     const int rc = static_cast<int>(cudaMemsetAsync(dw, 0, n * sizeof(float), s));
     return rc ? rc : static_cast<int>(cudaGetLastError());
   }
-  const Geom geo{B, pad, pad, cin, cout, 5, -2, 1, 1, 1};
-  const int n_pad = table_stride(B * pad);
-  int rc = match_table(keys, keys, table, geo, n_pad, s);
-  if (rc) return rc;
-  key_conv_stem_dw_kernel<<<dim3(slices, 125 / STEM_KG), STEM_THREADS, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(keys),
-      static_cast<const int*>(table), static_cast<const __nv_bfloat16*>(g),
-      static_cast<float*>(part), geo, n_pad);
-  rc = static_cast<int>(cudaGetLastError());
+  int rc;
+  if (cout == 32)
+    rc = g_bf16 ? launch_stem_dw<32, __nv_bfloat16>(x, keys, g, part, B * pad, pad, cin, slices, s)
+                : launch_stem_dw<32, float>(x, keys, g, part, B * pad, pad, cin, slices, s);
+  else
+    rc = g_bf16 ? launch_stem_dw<16, __nv_bfloat16>(x, keys, g, part, B * pad, pad, cin, slices, s)
+                : launch_stem_dw<16, float>(x, keys, g, part, B * pad, pad, cin, slices, s);
   if (rc) return rc;
   return sum_slices(static_cast<const float*>(part), static_cast<float*>(dw),
                     n, slices, s);

@@ -28,14 +28,20 @@
 // int32 map (Vout * K * 4 B, 57 MB for the level-0 3^3 map of 4 ScanNet
 // scenes) and the f32 output.
 //
-// Gather design. One warp per output row, grid-striding: lane j moves
-// channels 4j .. 4j + 3 with one 16-byte load and store, rounding each value
-// f32 -> bf16 (nearest even) -> f32 in registers. Bytes-bound: idx read
-// once, each gathered row read once, the output written once.
+// Gather design. Bytes-bound: idx read once, each gathered row read once,
+// the output written once. The output is walked as one flat array of
+// 16-byte elements (4 channels; single floats where c % 4 != 0 or x is
+// unaligned) by one wave of persistent blocks. Each thread takes 4
+// elements a block-width apart, issues their idx loads, then their x loads,
+// then its stores, so that 8 loads are in flight per thread; neighbouring
+// threads touch neighbouring addresses of a row, and the rounding f32 ->
+// bf16 (nearest even) -> f32 is done in pairs in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "conv_tile.cuh"
 
@@ -98,38 +104,73 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// VEC: c % 4 == 0 and 16-byte aligned rows (one float4 per lane and step).
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  const float2 a = __bfloat1622float2(__float22bfloat162_rn(make_float2(v.x, v.y)));
+  const float2 b = __bfloat1622float2(__float22bfloat162_rn(make_float2(v.z, v.w)));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_U = 4;        // elements in flight per thread
+
+// out viewed as n * w elements (w = c / 4 float4 per row when VEC: c % 4 ==
+// 0 and x 16-byte aligned; else w = c floats). Persistent blocks walk it in
+// chunks of GATHER_THREADS * GATHER_U; each thread loads the idx of its U
+// elements, then their x values, then stores them rounded to bf16 and back.
 template <bool VEC>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(GATHER_THREADS)
 gather_rows_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                    float* __restrict__ out, int n, int vin, int c) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int r = blockIdx.x * warps + (threadIdx.x >> 5); r < n;
-       r += gridDim.x * warps) {
-    const int v = __ldg(idx + r);
-    const bool ok = static_cast<unsigned>(v) < static_cast<unsigned>(vin);
-    if (VEC) {
-      const float4* src =
-          reinterpret_cast<const float4*>(x + (size_t)(ok ? v : 0) * c);
-      float4* dst = reinterpret_cast<float4*>(out + (size_t)r * c);
-      for (int j = lane; j < c / 4; j += 32) {
-        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ok) {
-          val = __ldg(src + j);
-          val.x = round_bf16(val.x);
-          val.y = round_bf16(val.y);
-          val.z = round_bf16(val.z);
-          val.w = round_bf16(val.w);
-        }
-        dst[j] = val;
-      }
-    } else {
-      for (int j = lane; j < c; j += 32)
-        out[(size_t)r * c + j] =
-            ok ? round_bf16(__ldg(x + (size_t)v * c + j)) : 0.0f;
+  using T = typename std::conditional<VEC, float4, float>::type;
+  const unsigned w = VEC ? c / 4 : c;
+  const unsigned total = (unsigned)n * w;
+  const T* xs = reinterpret_cast<const T*>(x);
+  T* os = reinterpret_cast<T*>(out);
+  for (unsigned e0 = blockIdx.x * GATHER_THREADS * GATHER_U + threadIdx.x;
+       e0 < total; e0 += gridDim.x * GATHER_THREADS * GATHER_U) {
+    int v[GATHER_U];
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u) {
+      const unsigned e = e0 + u * GATHER_THREADS;
+      v[u] = e < total ? __ldg(idx + e / w) : -1;
+    }
+    T val[GATHER_U];
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u) {
+      const unsigned e = e0 + u * GATHER_THREADS;
+      val[u] = T{};
+      if (static_cast<unsigned>(v[u]) < static_cast<unsigned>(vin))
+        val[u] = __ldg(xs + (size_t)v[u] * w + e % w);
+    }
+#pragma unroll
+    for (int u = 0; u < GATHER_U; ++u) {
+      const unsigned e = e0 + u * GATHER_THREADS;
+      if (e < total) os[e] = round_bf16(val[u]);
     }
   }
+}
+
+template <bool VEC>
+int launch_gather(const void* x, const void* idx, void* out, int n, int vin,
+                  int c, cudaStream_t stream) {
+  constexpr auto kernel = gather_rows_kernel<VEC>;
+  static int wave = 0;              // blocks of one wave, read once
+  if (!wave) {
+    int per_sm = 0, sms = 132, dev = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  GATHER_THREADS, 0);
+    wave = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  const long total = (long)n * (VEC ? c / 4 : c);
+  const long chunks = (total + GATHER_THREADS * GATHER_U - 1) /
+                      (GATHER_THREADS * GATHER_U);
+  const int grid = (int)(chunks < wave ? chunks : wave);
+  kernel<<<grid, GATHER_THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const int*>(idx),
+      static_cast<float*>(out), n, vin, c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -151,25 +192,18 @@ int b2m_nmap_conv(const void* x, const void* nbr, const void* w, void* wp,
   return dispatch_conv(x, nbr, w, wp, out, n_out, vin, K, cin, cout, s);
 }
 
-// x (vin, c) f32; idx (n,) i32, entries >= vin give 0; out (n, c) f32.
+// x (vin, c) f32; idx (n,) i32, entries >= vin give 0; out (n, c) f32;
+// n * c < 2^31.
 int b2m_gather_rows(const void* x, const void* idx, void* out, int n,
                     int vin, int c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0 || c == 0) return 0;
-  const int warps = 8;
-  const long blocks = ((long)n + warps - 1) / warps;
-  const int grid = (int)(blocks < 132 * 64 ? blocks : 132 * 64);
-  const bool vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec)
-    gather_rows_kernel<true><<<grid, warps * 32, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int*>(idx),
-        static_cast<float*>(out), n, vin, c);
-  else
-    gather_rows_kernel<false><<<grid, warps * 32, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const int*>(idx),
-        static_cast<float*>(out), n, vin, c);
-  return static_cast<int>(cudaGetLastError());
+  if (n < 0 || c < 0 || (long)n * c >= (1L << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    return launch_gather<true>(x, idx, out, n, vin, c, s);
+  return launch_gather<false>(x, idx, out, n, vin, c, s);
 }
 
 }  // extern "C"

@@ -32,8 +32,9 @@ w's.
 
 What bounds them on the H100, and what the design does about it, is in the
 header of csrc/key_conv.cu. The kernels search the key rows themselves (the
-dw kernels through a match table built on the card), so the TPU's host
-window plans (kc*_base / kc*_cnt) do not exist in the port.
+dw kernel through a match table built on the card, the stem dw in-block),
+so the TPU's host window plans (kc*_base / kc*_cnt) do not exist in the
+port.
 
 Rounding follows the JAX package: x and w round to bf16 on the f32 path too;
 the output dtype follows x (bf16 under --bf16_acts), except the stem, whose
@@ -188,13 +189,13 @@ def _geometry(kernel_size, stride_child, stride_parent):
     return kernel_size, -(kernel_size // 2), 1
 
 
-def _slices(n_rows, blocks_per_slice):
-    """Row-tile slices of a stem dw launch: ~32 blocks per SM of the H100 in
-    all (each tile is a chain of dependent loads, match table then gather,
-    and more blocks in flight hide more of that wait), at most one slice per
+def _slices(n_rows):
+    """Capacity of a stem dw launch's partials in row-tile slices: one wave
+    of up to 4 blocks per SM of the H100's 132, 5 blocks (the dx groups) per
+    slice (the kernel takes as many as the SMs hold), at most one slice per
     64-row tile."""
     n_tiles = max(1, -(-n_rows // 64))
-    return max(1, min(n_tiles, -(-32 * 132 // blocks_per_slice)))
+    return max(1, min(n_tiles, 4 * 132 // 5))
 
 
 def wpack_numel(K, cin, cout):
@@ -257,8 +258,8 @@ def key_conv(x, keys_in_b, keys_out, w, *, kernel_size=3, stride_child=False,
     out = torch.empty(B * pad_out, w.shape[2], dtype=x.dtype, device=x.device)
     wp = torch.empty(wpack_numel(*wb.shape), dtype=torch.bfloat16,
                      device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on(x.device):
+        stream = _build.stream(x.device)
         _launch(lib.b2m_key_conv, xb.data_ptr(), kin.data_ptr(),
                 kout.data_ptr(), wb.data_ptr(), wp.data_ptr(),
                 out.data_ptr(), B, pad_in,
@@ -291,8 +292,8 @@ def key_conv_stem(x, keys_in_b, w):
                       device=x.device)
     wp = torch.empty(wpack_numel(*wb.shape), dtype=torch.bfloat16,
                      device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on(x.device):
+        stream = _build.stream(x.device)
         _launch(lib.b2m_key_conv_stem, xb.data_ptr(), kin.data_ptr(),
                 wb.data_ptr(), wp.data_ptr(), out.data_ptr(), B, pad,
                 xb.shape[1],
@@ -347,8 +348,8 @@ def key_conv_dw(x, g, keys_in_b, keys_out, *, kernel_size=3,
     dw = torch.empty(K, cin, cout, dtype=torch.float32, device=x.device)
     table = torch.empty(K, table_stride(B * pad_out), dtype=torch.int32,
                         device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on(x.device):
+        stream = _build.stream(x.device)
         _launch(lib.b2m_key_conv_dw, xb.data_ptr(), kin.data_ptr(),
                 kout.data_ptr(), gb.data_ptr(), part.data_ptr(),
                 dw.data_ptr(), table.data_ptr(), B, pad_in, pad_out, cin,
@@ -359,7 +360,8 @@ def key_conv_dw(x, g, keys_in_b, keys_out, *, kernel_size=3,
 
 def key_conv_stem_dw(x, g, keys_in_b):
     """Weight gradient of key_conv_stem: (125, Cin, Cout) f32 from x
-    (B*pad, Cin <= 8) and g (B*pad, Cout), both rounded to bf16."""
+    (B*pad, Cin <= 8) and g (B*pad, Cout), both rounded to bf16 (g in the
+    kernel: f32 g is read as it is, no cast pass)."""
     if x.device.type == 'cpu':
         PLAIN_CALLS['stem_dw'] += 1
         return key_conv_dw_plain(x, g, keys_in_b, keys_in_b.reshape(-1),
@@ -375,18 +377,20 @@ def key_conv_stem_dw(x, g, keys_in_b):
     lib = _build.load('key_conv')
     B, pad = kin.shape
     cin, cout = x.shape[1], g.shape[1]
-    S = _slices(B * pad, 5)
-    xb, gb = _bf16(x), _bf16(g)
+    S = _slices(B * pad)
+    xb = pad_cin(_bf16(x))[0]
+    gc = (g if g.dtype in (torch.float32, torch.bfloat16)
+          else g.to(torch.bfloat16)).contiguous()
+    if gc.data_ptr() % 16:
+        gc = gc.clone()
     part = torch.empty(S, 125, cin, cout, dtype=torch.float32,
                        device=x.device)
     dw = torch.empty(125, cin, cout, dtype=torch.float32, device=x.device)
-    table = torch.empty(125, table_stride(B * pad), dtype=torch.int32,
-                        device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on(x.device):
+        stream = _build.stream(x.device)
         _launch(lib.b2m_key_conv_stem_dw, xb.data_ptr(), kin.data_ptr(),
-                gb.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                table.data_ptr(), B, pad, cin, cout, S, stream)
+                gc.data_ptr(), part.data_ptr(), dw.data_ptr(), B, pad, cin,
+                cout, int(gc.dtype == torch.bfloat16), S, stream)
     LAUNCHES['stem_dw'] += 1
     return dw
 

@@ -31,9 +31,15 @@ What bounds them on the H100, and what the design does about it
     and shares its tile (csrc/conv_tile.cuh). The TPU kernel's union-window
     DMA, one-hot MXU gather and 128-lane channel padding have no part here.
   * gather_rows: a pure gather with a cast, bytes-bound (idx read once, the
-    gathered f32 rows read and the f32 output written once). One warp per
-    output row, 16-byte loads and stores, each value rounded f32 -> bf16 ->
-    f32 in registers.
+    gathered f32 rows read and the f32 output written once). One wave of
+    persistent blocks walks the output as a flat array of 16-byte elements,
+    4 per thread in flight (idx loads, then x loads, then stores), each
+    value rounded f32 -> bf16 -> f32 in registers; single floats where C %
+    4 != 0 or x is not 16-byte aligned. The wrapper makes no copy of
+    contiguous inputs and enters no device context when x's device is
+    current (`_build.on`), and passes the raw stream handle
+    (`_build.stream`): at the up 4->3 row pick the device work is ~35 us,
+    so the host part of a call counts.
 
 A wrapper takes the plain twin only for CPU tensors; on a CUDA tensor it
 launches its kernel or raises. `LAUNCHES` counts kernel launches and
@@ -140,8 +146,8 @@ def sparse_conv(x, nbr, w):
                       device=x.device)
     wp = torch.empty(wpack_numel(*wb.shape), dtype=torch.bfloat16,
                      device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.on(x.device):
+        stream = _build.stream(x.device)
         _launch(lib.b2m_nmap_conv, xb.data_ptr(), nb.data_ptr(),
                 wb.data_ptr(), wp.data_ptr(), out.data_ptr(), nbr.shape[0],
                 x.shape[0], nbr.shape[1], xb.shape[1], w.shape[2], stream)
@@ -159,16 +165,12 @@ def gather_rows(x, idx):
     if x.dtype != torch.float32:
         raise TypeError(f'gather_rows: x dtype {x.dtype}, expected float32')
     from box2mask_torch.sparse import _build
-    lib = _build.load('nmap_conv')
-    xc = x.contiguous()
-    if xc.data_ptr() % 16:
-        xc = xc.clone()
-    ic = idx.contiguous()
+    fn = _build.load('nmap_conv').b2m_gather_rows
+    xc, ic = x.contiguous(), idx.contiguous()   # no copy when contiguous
     out = torch.empty(idx.shape[0], x.shape[1], dtype=torch.float32,
                       device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(lib.b2m_gather_rows, xc.data_ptr(), ic.data_ptr(),
-                out.data_ptr(), idx.shape[0], x.shape[0], x.shape[1], stream)
+    with _build.on(x.device):
+        _launch(fn, xc.data_ptr(), ic.data_ptr(), out.data_ptr(),
+                idx.shape[0], x.shape[0], x.shape[1], _build.stream(x.device))
     LAUNCHES['gather_rows'] += 1
     return out

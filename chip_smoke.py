@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero:
      plain twins, on one of those batches;
   5. the weight-gradient kernels (dw in its three modes, stem dw) against
      their plain twins at the training path's shapes (keys of 8 ScanNet-scale
-     scenes), timed;
+     scenes), timed, with the device time of the level-0 dw and of the stem
+     dw split by kernel;
   6. the training slice: configs/scannet.txt as it ships (layers 2, bf16
      activations, batch size 8, augmentation, box supervision, no remat) on
      2 unique batches of 8 labelled ScanNet-scale synthetic scenes from the
@@ -30,7 +31,8 @@ Phases, in order; any failure exits non-zero:
      step, per parameter tensor;
   8. the neighbor-map kernels (sparse_conv: stem, 3^3, down; gather_rows:
      the up convs' row pick) against their plain twins on the neighbor maps
-     of the same 4 ScanNet-scale scenes, timed, and the map build
+     of the same 4 ScanNet-scale scenes, timed (gather_rows and
+     torch.index_select also by device time alone), and the map build
      (ensure_maps) of one batch timed;
   9. the neighbor-map slice: phase 3 under --key_conv off --pallas_conv on,
      the same scenes and weights; every scene returns results, 64
@@ -287,6 +289,39 @@ def kernel_phase(dev, g):
     return rows
 
 
+def traced_ms(fn, reps):
+    """fn() `reps` times under torch.profiler: per kernel name, the mean
+    device ms of the launches the trace holds and their count. The trace
+    drops launches right after the profiler starts (a level-0 dw call lost
+    its first two kernels), so a kernel's time is the mean over the
+    launches it caught, not a sum over the calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    agg = {}
+    for e in prof.events():
+        if e.device_type.name == 'CUDA':
+            m = re.search(r'(\w+_kernel)', e.name)
+            k = m.group(1) if m else e.name[:40]
+            t, c = agg.get(k, (0.0, 0))
+            agg[k] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    return {k: (t / c, c) for k, (t, c) in agg.items()}
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call of fn, whose kernels each launch once per
+    call: the sum over its kernels of traced_ms's mean; and the count of
+    launches traced of the `reps` calls."""
+    agg = traced_ms(fn, reps)
+    return (sum(t for t, _ in agg.values()),
+            min((c for _, c in agg.values()), default=0))
+
+
 def sync_ms(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -399,13 +434,15 @@ def dw_phase(dev, g):
         ms, plain_ms = time_ms(kern), time_ms(twin)
         n_hits = hits(kin, kout, **kw)
         occ = occ_txt(n_hits, occupancy(kin, kout, DW_M, **kw))
-        if name == 'dw_same3_l0_96':
+        if name in ('dw_same3_l0_96', 'stem_dw_6_32'):
             dw_split(kern, name)
         n_in = int((kin < SENT_KEY).sum())
         n_kout = int((kout < SENT_KEY).sum())
-        # least traffic: valid x rows and g rows as the bf16 the kernel
-        # multiplies, the valid keys, the f32 dw written once
-        nbytes = (2 * (n_in * cin + n_kout * cout)
+        # least traffic: valid x and g rows read once as the call receives
+        # them (bf16 x; bf16 g for dw, f32 g for the stem dw, whose rounding
+        # is inside the call), the valid keys, the f32 dw written once
+        nbytes = (n_in * cin * x.element_size()
+                  + n_kout * cout * gr.element_size()
                   + 4 * (n_in + (0 if li == lo else n_kout)) + a.numel() * 4)
         flops = 2.0 * n_hits * cin * cout
         bound_ms, bound_by = bound(nbytes, flops)
@@ -420,22 +457,13 @@ def dw_phase(dev, g):
     return rows
 
 
-def dw_split(fn, name):
-    """Device time of one dw launch by kernel (match table, pass 1, pass 2),
-    under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    agg = {}
-    for e in prof.events():
-        if e.device_type.name == 'CUDA':
-            m = re.search(r'(\w+_kernel)', e.name)
-            k = m.group(1) if m else e.name[:40]
-            agg[k] = agg.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
-    log(f'[dw_split] {name}: device ms by kernel ' + json.dumps(agg))
+def dw_split(fn, name, reps=5):
+    """Device time of one dw launch by kernel (any pad or cast of the
+    wrapper, match table, pass 1, pass 2): traced_ms over `reps` calls."""
+    agg = traced_ms(fn, reps)
+    log(f'[dw_split] {name}: device ms by kernel (mean over the launches '
+        f'traced, of {reps} calls) ' + json.dumps(
+            {k: {'ms': t, 'traced': c} for k, (t, c) in agg.items()}))
 
 
 def train_batches(smi):
@@ -808,8 +836,11 @@ def nmap_kernel_phase(dev, g, smi):
             raise AssertionError(f'{name}: kernel and twin differ by '
                                  f'{(a - b).abs().max().item()}')
         yz, idx64 = torch.cat([y, y.new_zeros(1, cout)]), idx.long()
-        library_ms = time_ms(lambda: torch.index_select(yz, 0, idx64))
+        library = lambda: torch.index_select(yz, 0, idx64)     # noqa
+        library_ms = time_ms(library)
         ms, plain_ms = time_ms(kern), time_ms(twin)
+        (dev_ms, dev_n), (lib_dev_ms, lib_n) = (device_ms(kern),
+                                                device_ms(library))
         n_valid = int((idx < U * 8).sum())
         nbytes = idx.numel() * 4 + n_valid * cout * 4 + a.numel() * 4
         bound_ms, bound_by = bound(nbytes, 0.0)
@@ -819,7 +850,10 @@ def nmap_kernel_phase(dev, g, smi):
                          library_ms=library_ms))
         log(f'[kernel] {name}: bit-equal to its twin; kernel {ms:.3f} ms, '
             f'plain twin {plain_ms:.3f} ms, index_select {library_ms:.3f} '
-            f'ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} B)')
+            f'ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} B); device '
+            f'time (torch.profiler, mean of the launches traced of 20): '
+            f'kernel {dev_ms:.4f} ms ({dev_n} traced), index_select '
+            f'{lib_dev_ms:.4f} ms ({lib_n} traced)')
     return rows
 
 

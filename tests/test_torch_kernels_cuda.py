@@ -62,25 +62,42 @@ def lattice_keys(rng, n, level):
     return keys[np.sort(rng.permutation(len(keys))[:n])].astype(np.int32)
 
 
+def zrun_keys(rng, n, level):
+    """~n keys of level `level` in z-runs of 6 at both ends of the z axis
+    (z 0..5 and 1018..1023) in columns at the x / y borders (0..2 and
+    1021..1023): where the stem's z-run search meets the axis guard."""
+    step = 1 << level
+    edge = step * np.array([0, 1, 2, 1021 // step, 1022 // step,
+                            1023 // step])
+    z = step * np.concatenate([np.arange(6), 1023 // step - np.arange(6)])
+    c = np.array([(a, b, cz) for a in edge for b in edge for cz in z])
+    keys = np.unique((c[:, 0] << 20) | (c[:, 1] << 10) | c[:, 2])
+    keep = np.sort(rng.permutation(len(keys))[:min(n, len(keys))])
+    return keys[keep].astype(np.int32)
+
+
 # key layouts: 'border' (corner clusters, pad 512), 'pad200' (200-row pads:
 # n_out not a multiple of the kernels' 128-row tile, tiles that straddle the
 # two scenes), 'sent_tiles' (scene 1 holds 40 keys: whole tiles of SENT
 # rows), 'isolated' (lattice keys: one live offset per tile, fewer than the
-# ring's stages)
+# ring's stages); for the stem dw, not in LAYOUTS: 'zruns' (zrun_keys) and
+# 'wide' (4096-row pads: the stem dw's searches leave shared memory for
+# device memory past 2048 keys in all)
 LAYOUTS = ('border', 'pad200', 'sent_tiles', 'isolated')
 
 
 def case(mode, level=0, cin=16, cout=32, seed=0, layout='border'):
     """(x, keys_in_b, keys_out_b, w, static kwargs) for one mode, B = 2."""
     rng = np.random.default_rng(seed)
-    pad = 200 if layout == 'pad200' else PAD
+    pad = {'pad200': 200, 'wide': 4096}.get(layout, PAD)
     kin, kout, xs = [], [], []
     for b in range(2):
-        n_keys = pad - 60 - 90 * b if pad == PAD else 150 - 40 * b
+        n_keys = {PAD: pad - 60 - 90 * b, 200: 150 - 40 * b}.get(
+            pad, 3000 - 500 * b)
         if layout == 'sent_tiles' and b == 1:
             n_keys = 40
-        fine = (lattice_keys if layout == 'isolated' else border_keys)(
-            rng, n_keys, level)
+        fine = {'isolated': lattice_keys, 'zruns': zrun_keys}.get(
+            layout, border_keys)(rng, n_keys, level)
         coarse = floor_keys(fine, level + 1)
         if mode == 'up':        # coarse features, fine output rows
             kin.append(padded(coarse, pad))
@@ -230,10 +247,25 @@ def test_dw_kernel_matches_plain_twin_on_card(cuda, mode, level, cin, cout,
     assert torch.equal(got, again)                  # deterministic
 
 
+# the stem dw's edges: z-runs against the axis guard, tiles that straddle
+# scenes and a pad off the 64-row tile (pad200), all-SENT tiles, isolated
+# keys, searches past the shared-memory samples (wide); cin 3, 6, 8; cout
+# 16, 32
+STEM_DW_CASES = [(6, 32, 'border'), (3, 32, 'border'), (8, 16, 'border')] + [
+    (6, 32, lay) for lay in LAYOUTS[1:] + ('zruns',)] + [
+    (3, 16, 'zruns'), (8, 32, 'zruns'), (8, 32, 'pad200'),
+    (3, 16, 'sent_tiles'), (6, 16, 'pad200'), (6, 32, 'wide'),
+    (3, 16, 'wide')]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('cin,cout', [(6, 32), (3, 32), (8, 16)])
-def test_stem_dw_kernel_matches_plain_twin_on_card(cuda, cin, cout):
-    x, kin, _, w, _ = case('stem', cin=cin, cout=cout, seed=cin)
+@pytest.mark.parametrize('cin,cout,layout', STEM_DW_CASES)
+def test_stem_dw_kernel_matches_plain_twin_on_card(cuda, cin, cout, layout):
+    """1e-5 of max |dw| (f32 summation order); g given as f32 or as bf16
+    gives the same dw bit for bit (the kernel rounds f32 g to bf16 as the
+    cast does); two launches bit-identical."""
+    x, kin, _, w, _ = case('stem', cin=cin, cout=cout, seed=cin,
+                           layout=layout)
     xt = torch.from_numpy(x).to(cuda)
     kin_t = torch.from_numpy(kin).to(cuda)
     g = torch.from_numpy(np.random.default_rng(cin).normal(
@@ -247,6 +279,8 @@ def test_stem_dw_kernel_matches_plain_twin_on_card(cuda, cin, cout):
     assert got.shape == (125, cin, cout)
     assert_close(got.cpu().numpy(), want.cpu().numpy(), 'f32')
     assert torch.equal(got, KC.key_conv_stem_dw(xt, g, kin_t))
+    assert torch.equal(got, KC.key_conv_stem_dw(xt, g.to(torch.bfloat16),
+                                                kin_t))
 
 
 @pytest.mark.cuda
@@ -379,6 +413,41 @@ def test_gather_rows_kernel_matches_plain_twin_on_card(cuda, level, cout):
     assert PCV.LAUNCHES['gather_rows'] == before + 1
     assert torch.equal(got, want)
     assert (idx == U * 8).any()
+
+
+def monotone_idx(rng, n, vin, sent_share):
+    """(n,) int32 ascending row picks below vin, a share of them replaced
+    by the sentinel vin."""
+    idx = np.sort(rng.integers(0, vin, n))
+    idx[rng.random(n) < sent_share] = vin
+    return idx.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('edge,n,vin,c', [
+    ('all_sentinel', 1000, 512, 96),
+    ('c_not_4', 1000, 512, 6),          # single-float path
+    ('c_not_4', 777, 300, 30),
+    ('unaligned_x', 1000, 512, 96),     # x 4 bytes off 16: single floats
+    ('odd_n', 1001, 512, 96),           # n off the 4 elements per thread
+    ('odd_n', 3, 8, 256),
+    ('odd_n', 100003, 4096, 256)])
+def test_gather_rows_kernel_edges_on_card(cuda, edge, n, vin, c):
+    """gather_rows at its edges: bit-equal to the twin."""
+    from box2mask_torch.sparse import pallas_conv as PCV
+    rng = np.random.default_rng(n + c)
+    vals = rng.normal(size=vin * c + 1).astype(np.float32)
+    buf = torch.from_numpy(vals).to(cuda)
+    x = (buf[1:] if edge == 'unaligned_x' else buf[:-1]).view(vin, c)
+    assert (x.data_ptr() % 16 != 0) == (edge == 'unaligned_x')
+    idx = torch.from_numpy(monotone_idx(
+        rng, n, vin, 1.0 if edge == 'all_sentinel' else 0.3)).to(cuda)
+    got = PCV.gather_rows(x, idx)
+    want = PCV.gather_rows_plain(x, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (n, c) and torch.equal(got, want)
+    if edge == 'all_sentinel':
+        assert not got.any()
 
 
 @pytest.mark.cuda

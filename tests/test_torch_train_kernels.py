@@ -80,10 +80,14 @@ def test_dw_twin_matches_jax(mode, level, dtype):
     assert_f32_close(got.numpy(), want)
 
 
-def test_stem_dw_twin_matches_jax():
-    """5^3 stem at cin 6, cout 32 (the main path's widths)."""
-    x, kin, _, w, _ = case('stem', cin=6, cout=32, seed=4)
-    g = cotangent(x.shape[0], 32, seed=5)
+@pytest.mark.parametrize('cout,layout', [(32, 'border'), (16, 'border'),
+                                          (32, 'sent_tiles'), (16, 'zruns')])
+def test_stem_dw_twin_matches_jax(cout, layout):
+    """5^3 stem at cin 6: cout 32 (the main path's widths) and 16; a scene
+    whose key row is mostly SENT (sent_tiles: 40 keys of 512); z-runs at
+    the ends of every axis (zruns)."""
+    x, kin, _, w, _ = case('stem', cin=6, cout=cout, seed=4, layout=layout)
+    g = cotangent(x.shape[0], cout, seed=5)
     bases, counts, win = jax_plans(kin, kin, 5, 1, window=JKC.WINDOW_STEM)
     want = np.asarray(JKC.key_conv_stem_dw(
         jnp.asarray(x), jnp.asarray(g), jnp.asarray(kin), bases, counts,
@@ -92,7 +96,7 @@ def test_stem_dw_twin_matches_jax():
     got = KC.key_conv_stem_dw(torch.from_numpy(x), torch.from_numpy(g),
                               torch.from_numpy(kin))
     assert KC.PLAIN_CALLS['stem_dw'] == before + 1
-    assert got.shape == want.shape == (125, 6, 32)
+    assert got.shape == want.shape == (125, 6, cout)
     assert_f32_close(got.numpy(), want)
 
 
