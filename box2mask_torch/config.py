@@ -1,13 +1,14 @@
 """Config: the flags the port reads (its own copy of the part of
-box2mask_tpu/config.py that the inference and training slices use; same
-names, defaults, derived fields and checks).
+box2mask_tpu/config.py that the inference, training and evaluation slices
+use; same names, defaults, derived fields and checks).
 
 Reads the same ``configs/*.txt`` format (``key = value`` lines, bare flags,
 ``[a, b, c]`` lists, ``#`` comments) without depending on configargparse.
 Precedence: CLI > config file > default. Flags of the JAX package that the
-port does not read yet (other datasets, multi-device, evaluation modes) are
-accepted, from a config file or the command line, and ignored. The conv-path
-flags are read, with the JAX package's names, defaults and choices:
+port does not read yet (other datasets, multi-device, the param-search
+grids) are accepted, from a config file or the command line, and ignored.
+The conv-path flags are read, with the JAX package's names, defaults and
+choices:
 ``--key_conv {on,eval,off}`` (key-matching convs, or neighbor maps built on
 the device; datasets/batching.build_batch), ``--pallas_conv {auto,on,off}``
 (the neighbor-map convs through the CUDA kernels of sparse/pallas_conv.py;
@@ -79,6 +80,25 @@ def config_parser():
     add('--fixed_seed', type=int, default=None)
     add('--eval_ths', type=float, nargs=4, default=None,
         help='cluster_th, score_th, mask_bin_th, mask_nms_th')
+    # eval / prediction (box2mask_tpu/config.py:96-114, :142)
+    add('--data_dir', type=str, default='./data/scannet/')
+    add('--checkpoint', type=str, default=None)
+    add('--sample_fixed_seed', default=False, action='store_true')
+    add('--load_ckpt_closest_to', type=int, default=None)
+    add('--eval_batch_size', type=int, default=4)
+    add('--eval_wo_aug', default=False, action='store_true')
+    add('--eval_training', default=False, action='store_true')
+    add('--eval_specific_param', default=False, action='store_true')
+    add('--submission_write_out', default=False, action='store_true')
+    add('--submission_write_out_testset', default=False, action='store_true')
+    # modes the port's evaluate CLI refuses, naming the ROADMAP item
+    add('--param_search', default=False, action='store_true')
+    add('--produce_visualizations', default=False, action='store_true')
+    add('--predict_specific_scene', type=str, default=None)
+    add('--spatial_shards', type=int, default=0)
+    add('--use_native_host_ops', default=True, action='store_true',
+        help='the C host library (native/) for voxelization and the eval '
+             'mask unpack; raises when it cannot be built')
     # training
     add('--eval_first', dest='skip_first_eval', action='store_false')
     p.set_defaults(skip_first_eval=True)
@@ -190,17 +210,23 @@ def _apply_config_file(parser, argv):
 
 def get_config(args=None):
     """Parse args + config file and derive the fields the port reads, with
-    the JAX package's checks (box2mask_tpu/config.py:308-401): head-name
+    the JAX package's checks (box2mask_tpu/config.py:308-413): head-name
     constants, `in_channels`, `full_model`, the experiment paths, the
-    head / loss-weight checks and the auto-remat rule."""
+    head / loss-weight checks, the auto-remat rule, --sample_fixed_seed and
+    the --eval_batch_size / --key_conv off check."""
     parser = config_parser()
     argv = list(args) if args is not None else sys.argv[1:]
-    cfg, _ = parser.parse_known_args(_apply_config_file(parser, argv))
+    argv = _apply_config_file(parser, argv)
+    cfg, _ = parser.parse_known_args(argv)
+    if cfg.spatial_shards > 1:
+        cfg.batch_size = 1          # one scene, sharded across devices
     if cfg.dont_align:
         cfg.align = False
     cfg.loss_on_fg_instances = not cfg.loss_on_all_instances
     if len(cfg.rotation_aug) == 1:
         cfg.rotation_aug = [cfg.rotation_aug[0], math.pi / 100, 1]
+    if cfg.sample_fixed_seed:
+        cfg.fixed_seed = int.from_bytes(os.urandom(4), byteorder='big')
     if cfg.dropout_boxes and not 0 <= cfg.dropout_boxes <= 1:
         raise ValueError(f'--dropout_boxes {cfg.dropout_boxes} not in [0, 1]')
     for head in HEADS:
@@ -246,4 +272,14 @@ def get_config(args=None):
             and needs_remat(cfg.batch_size * cfg.vox_bucket, cfg.bf16_acts)):
         cfg.remat = True
         cfg.remat_auto = True
+    # fused eval at batch size > 1 needs the key-pyramid batch layout:
+    # refuse an explicit --eval_batch_size (command line or config file)
+    # here, not mid-eval; a defaulted one drops to 1
+    if cfg.key_conv == 'off' and cfg.eval_batch_size > 1:
+        if any(a.startswith('--eval_batch_size') for a in argv):
+            raise ValueError(
+                'fused eval at --eval_batch_size > 1 requires the key_conv '
+                'batch layout: drop "--key_conv off" or set '
+                '--eval_batch_size 1')
+        cfg.eval_batch_size = 1
     return cfg

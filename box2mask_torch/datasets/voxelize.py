@@ -1,10 +1,13 @@
 """Voxelization + NN feature assignment + segment pooling geometry (host, NumPy).
 
-The port's copy of the NumPy/cKDTree branch of
-box2mask_tpu/datasets/voxelize.py (the ctypes native branch is not copied):
-unique voxels in np.unique(axis=0) order, each voxel carrying its nearest
-point's features, and per-segment mean world positions; and segment_mode
-(:90), the per-segment majority vote of the association.
+The port's copy of box2mask_tpu/datasets/voxelize.py: unique voxels in
+np.unique(axis=0) order, each voxel carrying its nearest point's features,
+and per-segment mean world positions; and segment_mode (:90), the
+per-segment majority vote of the association. The voxels and nearest
+points come from the C voxelizer (native/, :32-40) under
+`cfg.use_native_host_ops` (on by default), else from the NumPy/cKDTree
+plain version. The two may pick different nearest points on exact distance
+ties.
 
   vox2point: (P,) point -> voxel row (np.unique inverse; named for parity
              with the reference although it is indexed by point).
@@ -16,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 from scipy.spatial import cKDTree
 
+from box2mask_torch.native import native_voxelize
+
 
 def voxelize_scene(scene, cfg):
     """Voxelize one scene dict {positions, colors, normals, segments} -> ret dict."""
@@ -24,13 +29,16 @@ def voxelize_scene(scene, cfg):
     origin = min(0, np.min(positions)) if len(positions) else 0.0
     input_coords = (positions - origin) / cfg.voxel_size
 
-    vox = np.round(input_coords)
-    vox_coords, vox2point = np.unique(vox, axis=0, return_inverse=True)
-    vox2point = vox2point.reshape(-1)
-    tree = cKDTree(input_coords)
-    _, point2vox = tree.query(vox_coords.astype(np.float64), k=1)
-    point2vox = np.asarray(point2vox).reshape(-1)
-    vox_coords = vox_coords.astype(np.int32)
+    if cfg.use_native_host_ops:
+        vox_coords, vox2point, point2vox = native_voxelize(input_coords)
+    else:
+        vox = np.round(input_coords)
+        vox_coords, vox2point = np.unique(vox, axis=0, return_inverse=True)
+        vox2point = vox2point.reshape(-1)
+        tree = cKDTree(input_coords)
+        _, point2vox = tree.query(vox_coords.astype(np.float64), k=1)
+        point2vox = np.asarray(point2vox).reshape(-1)
+        vox_coords = vox_coords.astype(np.int32)
     ret['vox_coords'] = vox_coords
     ret['vox2point'] = vox2point
     ret['point2vox'] = point2vox

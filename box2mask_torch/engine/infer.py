@@ -66,7 +66,8 @@ class FusedInferencePipeline:
         out_np = {k: v.cpu().numpy() for k, v in out.items()}
         results = stacked_masks_to_results(
             out_np, host, self.valid_class_ids,
-            post_fallback=self.post_full, pred=pred, dev_t=full, ths=ths)
+            post_fallback=self.post_full, pred=pred, dev_t=full, ths=ths,
+            native=self.cfg.use_native_host_ops)
         return results, out_np
 
     def run(self, params, batches, ths):

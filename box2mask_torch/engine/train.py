@@ -2,14 +2,14 @@
 
 Experiment dir with args.txt + config copy, auto-resume from the latest
 time-encoded checkpoint, cosine LR, epoch-head checkpoint / val loss blocks,
-per-step timing and peak device memory (torch.cuda.max_memory_allocated in
-place of the JAX memory stats), val_min marker files. Scalars go to
-`<exp>/metrics.jsonl`, one JSON object per line.
+the full val-set evaluation (mAP) at eval epochs, per-step timing and peak
+device memory (torch.cuda.max_memory_allocated in place of the JAX memory
+stats), val_min marker files. Scalars go to `<exp>/metrics.jsonl`, one JSON
+object per line (ScalarLog, in place of the JAX package's tensorboard
+writer).
 
 Not in this slice: multi-device and spatially sharded training (ROADMAP
-A11, A13) and the in-training full evaluation, which needs the ported fused
-eval (ROADMAP A5): `_full_eval` raises NotImplementedError when an epoch
-head reaches it.
+A11, A13).
 """
 
 from __future__ import annotations
@@ -18,16 +18,35 @@ import json
 import os
 import shutil
 import time
+import traceback
 
 import torch
 
 from box2mask_torch.config import needs_remat
+from box2mask_torch.datasets.loader import get_dataset
 from box2mask_torch.datasets.tables import get_tables
 from box2mask_torch.engine import checkpoint as ckpt
 from box2mask_torch.engine import state as S
+from box2mask_torch.engine.evaluate import Evaluater
 from box2mask_torch.engine.infer import upload
 from box2mask_torch.engine.schedule import lr_for_epoch
 from box2mask_torch.runtime import resolve_device
+
+
+class ScalarLog:
+    """Scalars appended to a JSON-lines file, one object per call."""
+
+    def __init__(self, path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self.path = path
+
+    def log(self, **scalars):
+        with open(self.path, 'a') as f:
+            f.write(json.dumps(scalars) + '\n')
+
+    def add_scalar(self, tag, value, step):
+        """The tensorboard writer's call, as the Evaluater makes it."""
+        self.log(epoch=step, **{tag: value})
 
 
 class Trainer:
@@ -54,7 +73,7 @@ class Trainer:
         if cfg.config and os.path.exists(cfg.config):
             shutil.copyfile(cfg.config, os.path.join(
                 cfg.exp_path, os.path.basename(cfg.config)))
-        self.metrics_path = os.path.join(cfg.exp_path, 'metrics.jsonl')
+        self.metrics = ScalarLog(os.path.join(cfg.exp_path, 'metrics.jsonl'))
 
         self.state = None
         self.training_time = 0.0
@@ -63,8 +82,7 @@ class Trainer:
         self.val_min = ckpt.read_val_min(cfg.exp_path)
 
     def log(self, **scalars):
-        with open(self.metrics_path, 'a') as f:
-            f.write(json.dumps(scalars) + '\n')
+        self.metrics.log(**scalars)
 
     # ------------------------------------------------------------------ setup
     def _ensure_state(self, sample_batch):
@@ -190,6 +208,18 @@ class Trainer:
             self._full_eval(epoch)
 
     def _full_eval(self, epoch):
-        raise NotImplementedError(
-            f'epoch {epoch}: the in-training full evaluation needs the fused '
-            'ScanNet eval, which is not ported yet (ROADMAP A5)')
+        """Full val-set mAP on the live weights (JAX engine/train.py:314-334).
+        A failure must not end a long training run, but it is loud: the
+        traceback on stderr and a `val/full_eval_failed` scalar."""
+        try:
+            ev = Evaluater(self.cfg, state=self.state, writer=self.metrics,
+                           epoch=epoch)
+            ev.eval(get_dataset(self.cfg, 'val',
+                                do_augmentations=not self.cfg.eval_wo_aug))
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception:
+            traceback.print_exc()
+            print(f'Full eval FAILED at epoch {epoch} (traceback above); '
+                  'training continues')
+            self.log(epoch=epoch, **{'val/full_eval_failed': 1.0})

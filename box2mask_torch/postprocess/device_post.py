@@ -1,7 +1,12 @@
 """On-device detection -> masks post-processing, and the host unpack (port of
 box2mask_tpu/postprocess/device_post.py: _pack_bits :44, _make_core :57,
 make_device_postproc :166, make_fused_infer's per-scene packing :229-251,
-host unpack :264-411, both batch layouts as at :228 and :394-398).
+host unpack :264-411, both batch layouts as at :228 and :394-398). The
+voxel-level unpack (no segment pooling, and the top-k overflow fallback)
+runs through the C unpack of native/ as the JAX package's _scene_result
+does (:264-290), unless the caller asks for the NumPy plain version
+(`native=False`, from cfg.use_native_host_ops); the segment-level unpack
+stays NumPy, as there.
 
 Per scene:
   1. votes -> [sigmoid(score), min, max] boxes (min_bb clamp),
@@ -24,6 +29,7 @@ import warnings
 import numpy as np
 import torch
 
+from box2mask_torch.native import native_unpack_masks
 from box2mask_torch.postprocess.nms import SYNC_EVERY, nms_clustering
 
 
@@ -169,6 +175,16 @@ def _unpack(packed, n, lo, hi):
                          bitorder='little')[:, lo:hi].astype(bool)
 
 
+def _point_masks(packed, n, start, n_vox, vox2point, native):
+    """Rows [:n] of bit-packed voxel masks, the scene's voxels [start,
+    start + n_vox), projected to its points: (n, P) bool. The C pass needs
+    the scene to start on a byte (JAX device_post.py:401-402)."""
+    if native and start % 8 == 0:
+        return native_unpack_masks(packed[:n], start // 8,
+                                   vox2point).view(np.bool_)
+    return _unpack(packed, n, start, start + n_vox)[:, vox2point]
+
+
 def _result(conf, label_idx, masks, valid_class_ids):
     label_id = np.asarray(valid_class_ids)[label_idx].astype(np.int32)
     return {'conf': conf, 'label_id': label_id, 'mask': masks}
@@ -184,12 +200,12 @@ def _warn_cap(host, scene_idx, cap_hit):
 
 def stacked_masks_to_results(out_np, host, valid_class_ids,
                              post_fallback=None, pred=None, dev_t=None,
-                             ths=None):
+                             ths=None, native=True):
     """Host side: unpack one stacked (numpy) fused output into the
     detection_to_masks result dict {scene: {conf, label_id, mask}}, masks
     over each scene's points, for every scene. A scene with more kept masks
     than shipped rows re-runs through `post_fallback(pred, dev_t, scene_idx,
-    ths)` at full width."""
+    ths)` at full width. `native` picks the C voxel-level unpack."""
     results = {}
     seg_level = 'seg_masks_packed' in out_np
     packed_key = 'seg_masks_packed' if seg_level else 'masks_packed'
@@ -207,7 +223,7 @@ def stacked_masks_to_results(out_np, host, valid_class_ids,
             else:
                 out = post_fallback(pred, dev_t, si, ths)
                 results.update(device_masks_to_results(
-                    out, host, valid_class_ids, si))
+                    out, host, valid_class_ids, si, native))
                 continue
         v2p = np.asarray(host['vox2point'][si])
         if seg_level:
@@ -218,15 +234,16 @@ def stacked_masks_to_results(out_np, host, valid_class_ids,
             masks = _unpack(out_np[packed_key][si], n, seg_off[si],
                             seg_off[si + 1])[:, cache[si]]
         else:
-            masks = _unpack(out_np[packed_key][si], n, 0,
-                            host['num_voxels'][si])[:, v2p]
+            masks = _point_masks(out_np[packed_key][si], n, 0,
+                                 host['num_voxels'][si], v2p, native)
         results[scene['name']] = _result(
             out_np['conf'][si][:n], out_np['label_idx'][si][:n], masks,
             valid_class_ids)
     return results
 
 
-def device_masks_to_results(out, host, valid_class_ids, scene_idx):
+def device_masks_to_results(out, host, valid_class_ids, scene_idx,
+                            native=True):
     """Host side: unpack one scene's full-width result (make_device_postproc)
     into the detection_to_masks result dict, masks over the scene's points."""
     out = {k: v.cpu().numpy() for k, v in out.items()}
@@ -236,8 +253,8 @@ def device_masks_to_results(out, host, valid_class_ids, scene_idx):
         start = scene_idx * host['interleaved_vs']
     else:                                        # host maps: tail-padded
         start = int(np.sum(host['num_voxels'][:scene_idx]))
-    masks = _unpack(out['masks_packed'], n, start,
-                    start + host['num_voxels'][scene_idx])
-    masks = masks[:, np.asarray(host['vox2point'][scene_idx])]
+    masks = _point_masks(out['masks_packed'], n, start,
+                         host['num_voxels'][scene_idx],
+                         np.asarray(host['vox2point'][scene_idx]), native)
     return {host['scene'][scene_idx]['name']: _result(
         out['conf'][:n], out['label_idx'][:n], masks, valid_class_ids)}

@@ -41,27 +41,48 @@ Phases, in order; any failure exits non-zero:
      (sparse/ops.py XLA_CALLS) ran; then its stages and one batch under
      torch.profiler;
  10. that forward with the kernels against the same forward with the plain
-     twins, and against the key path's forward (phase 4's bounds).
+     twins, and against the key path's forward (phase 4's bounds);
+ 11. the evaluation slice: `python -m box2mask_torch.evaluate`'s main(),
+     in-process, on configs/scannet.txt with 8 synthetic ScanNet-scale val
+     scenes (the phase 3 recipe, test-time augmentation under a fixed
+     seed) at --eval_batch_size 4, from a checkpoint of seeded kaiming
+     weights (engine/checkpoint.save_checkpoint) in a temporary experiment
+     root: the checkpoint loaded, 8 scenes with results, every key-path
+     forward kernel mode launched and no twin ran, each scene's results
+     bit-equal to FusedInferencePipeline.run on the same batches and
+     weights (both under deterministic index_add_), the C mask unpack
+     bit-equal to NumPy's on every scene's full-width voxel rows, table.txt
+     written, and a second eval from the cache with the same AP and no
+     launch; one `[eval]` line of its times (scenes/s of
+     fused_dataset_results, the loader's seconds alone, seconds of the AP
+     protocol, native and NumPy voxelize and unpack ms per scene).
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and last `{"ok": true, "device": {...}}`.
 """
 
+import copy
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from box2mask_torch import evaluate as eval_cli
 from box2mask_torch.config import get_config
 from box2mask_torch.convert import kaiming_init_
 from box2mask_torch.datasets import batching, loader, synthetic, tables
-from box2mask_torch.engine import state as S
+from box2mask_torch.datasets.voxelize import voxelize_scene
+from box2mask_torch.engine import checkpoint, state as S
+from box2mask_torch.engine.evaluate import Evaluater
 from box2mask_torch.engine.infer import FusedInferencePipeline, upload
+from box2mask_torch.postprocess import device_post as DP
 from box2mask_torch.postprocess.device_post import (fused_postproc,
                                                     stacked_masks_to_results)
 from box2mask_torch.runtime import resolve_device
@@ -857,6 +878,203 @@ def nmap_kernel_phase(dev, g, smi):
     return rows
 
 
+EVAL_ARGS = ['--config', os.path.join(ROOT, 'configs', 'scannet.txt'),
+             '--dataset_name', 'synthetic', '--synthetic_instances', '18',
+             '--synthetic_points_per_instance', '4000',
+             '--synthetic_floor_points', '45000',
+             '--synthetic_wall_points', '35000', '--dataset_size', '8',
+             '--eval_batch_size', '4', '--fixed_seed', '11']
+
+
+class RecordedEvaluater(Evaluater):
+    """The CLI's Evaluater, recording what fused_dataset_results returned
+    and the wall seconds of it and of the AP protocol (scannet_eval)."""
+    runs = []
+
+    def fused_dataset_results(self, dataset, ths=None, cache=True):
+        t0 = time.perf_counter()
+        out = super().fused_dataset_results(dataset, ths, cache)
+        torch.cuda.synchronize()
+        self.runs.append({'ev': self, 'results': out[0], 'entries': out[1],
+                          'fused_s': time.perf_counter() - t0})
+        return out
+
+    def scannet_eval(self, results, entries, write_to_tb=None):
+        t0 = time.perf_counter()
+        avgs = super().scannet_eval(results, entries, write_to_tb)
+        self.runs[-1].update(ap_s=time.perf_counter() - t0, avgs=avgs)
+        return avgs
+
+
+def same_ap(a, b):
+    return all(np.array_equal(a[k], b[k], equal_nan=True)
+               for k in ('all_ap', 'all_ap_50%', 'all_ap_25%'))
+
+
+def eval_phase(smi):
+    """Phase 11: the evaluation CLI on the card from a checkpoint, held to
+    the pipeline, the C unpack held to NumPy's, the cache reload held to
+    the first eval; returns the `[eval]` numbers."""
+    root = tempfile.mkdtemp(prefix='b2m_eval_')
+    saved_root = os.environ.get('BOX2MASK_EXP_ROOT')
+    os.environ['BOX2MASK_EXP_ROOT'] = root
+    saved_cli = eval_cli.Evaluater
+    eval_cli.Evaluater = RecordedEvaluater
+    # segment pooling sums with index_add_, whose CUDA atomics add in any
+    # order: deterministic kernels make two runs comparable bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = get_config(EVAL_ARGS)
+        valid_ids, _, _, is_fg = tables.get_tables('scannet')
+        state = S.init_state(cfg, S.build_model(cfg, len(valid_ids)),
+                             S.make_optimizer(cfg), seed=2)
+        ckpt_path = checkpoint.save_checkpoint(cfg.checkpoint_path, state,
+                                               3600.0, 0, 0)
+        ckpt_name = os.path.basename(ckpt_path)[:-5]
+
+        torch.cuda.synchronize()
+        KC.reset_counts()
+        PC.reset_counts()
+        ops.reset_counts()
+        avgs = eval_cli.main(EVAL_ARGS)
+        torch.cuda.synchronize()
+        counts = (dict(KC.LAUNCHES), dict(KC.PLAIN_CALLS), dict(PC.LAUNCHES),
+                  dict(PC.PLAIN_CALLS), dict(ops.XLA_CALLS))
+        run = RecordedEvaluater.runs[-1]
+        ev, results = run['ev'], run['results']
+        log(f'[eval] launches: key_conv {counts[0]}, pallas_conv '
+            f'{counts[2]}; plain-twin calls: key_conv {counts[1]}, '
+            f'pallas_conv {counts[3]}; XLA-formulation calls {counts[4]}')
+        if (min(counts[0][m] for m in FWD_MODES) == 0
+                or sum(counts[1].values()) + sum(counts[3].values()) != 0
+                or sum(counts[2].values()) + sum(counts[4].values()) != 0):
+            raise AssertionError('the eval did not run every key-path kernel '
+                                 'mode, or ran a twin or a neighbor-map conv')
+        if ev.ckpt_name != ckpt_name:
+            raise AssertionError(f'checkpoint {ckpt_name} not loaded '
+                                 f'({ev.ckpt_name})')
+        tables_txt = [d for d, _, fs in os.walk(ev.results_path)
+                      if 'table.txt' in fs]
+        if len(tables_txt) != 1 or not same_ap(avgs, run['avgs']):
+            raise AssertionError(f'table.txt not written: {tables_txt}')
+        names = sorted(s['name'] for _, _, h in run['entries']
+                       for s in h['scene'])
+        if len(names) != 8 or sorted(results) != names:
+            raise AssertionError(f'results for {sorted(results)}')
+
+        # the pipeline on the same batches with the saved weights
+        pipe = FusedInferencePipeline(cfg, valid_ids, is_fg,
+                                      model=state.model, top_k=128)
+        harvested = []
+        harvest = pipe._harvest
+
+        def keep(pred, full, out, host, ths):
+            harvested.append((pred, full, host, ths))
+            return harvest(pred, full, out, host, ths)
+        pipe._harvest = keep
+        ds = loader.get_dataset(cfg, 'val',
+                                do_augmentations=not cfg.eval_wo_aug)
+        want, n_overflow, n_masks = {}, 0, 0
+        for r, out_np, _, _ in pipe.run(None, ds.get_loader(
+                shuffle=False, drop_last=False,
+                batch_size=cfg.eval_batch_size), cfg.eval_ths):
+            want.update(r)
+            n_overflow += int(out_np['topk_overflow'].sum())
+        for name in names:
+            g, w = results[name], want[name]
+            if not (np.array_equal(g['conf'], w['conf'])
+                    and np.array_equal(g['label_id'], w['label_id'])
+                    and np.array_equal(g['mask'], w['mask'])):
+                raise AssertionError(f'{name}: the eval\'s results differ '
+                                     'from the pipeline\'s')
+            n_masks += len(w['conf'])
+        log(f'[eval] {len(names)} scenes, {n_masks} masks, bit-equal to '
+            f'FusedInferencePipeline.run; {n_overflow} top-k overflow scenes')
+
+        # the C unpack against NumPy on every scene's full-width voxel rows
+        unpack_ms = {True: [], False: []}
+        n_rows = 0
+        for pred, full, host, ths in harvested:
+            for si in range(len(host['scene'])):
+                o = {k: v.cpu().numpy() for k, v in
+                     pipe.post_full(pred, full, si, ths).items()}
+                n = int(o['n_keep'])
+                start = si * host['interleaved_vs']
+                v2p = np.asarray(host['vox2point'][si])
+                masks = {}
+                for native in (True, False):
+                    t0 = time.perf_counter()
+                    masks[native] = DP._point_masks(
+                        o['masks_packed'], n, start, host['num_voxels'][si],
+                        v2p, native)
+                    unpack_ms[native].append(
+                        (time.perf_counter() - t0) * 1e3)
+                if (start % 8 or masks[True].dtype != bool
+                        or not np.array_equal(masks[True], masks[False])):
+                    raise AssertionError(f"{host['scene'][si]['name']}: C "
+                                         'unpack differs from NumPy')
+                n_rows += n
+        log(f'[eval] C unpack bit-equal to NumPy on {n_rows} full-width '
+            f'voxel rows of {len(names)} scenes')
+
+        # native and NumPy voxelization of the first batch's scenes, timed.
+        # They are two paths, not one held to the other (as in the JAX
+        # package): the C voxelizer rounds float32 coordinates, NumPy the
+        # augmented scenes' float64 ones, and they may break distance ties
+        # apart; the points whose voxel differs are counted.
+        vox_ms = {True: [], False: []}
+        moved = 0
+        for name in names[:4]:
+            scene, _ = ds.read_scene(name, rng=loader.scene_rng(cfg, name))
+            vox = {}
+            for native in (True, False):
+                c = copy.copy(cfg)
+                c.use_native_host_ops = native
+                t0 = time.perf_counter()
+                r = voxelize_scene(scene, c)
+                vox_ms[native].append((time.perf_counter() - t0) * 1e3)
+                vox[native] = r['vox_coords'][r['vox2point']]
+            moved += int((vox[True] != vox[False]).any(1).sum())
+
+        # the loader alone: the host's share of fused_dataset_results
+        t0 = time.perf_counter()
+        for _ in ds.get_loader(shuffle=False, drop_last=False,
+                               batch_size=cfg.eval_batch_size):
+            pass
+        loader_s = time.perf_counter() - t0
+
+        # a second eval from the cache: the same AP, nothing launched
+        KC.reset_counts()
+        avgs2 = eval_cli.main(EVAL_ARGS)
+        if not same_ap(avgs, avgs2) or sum(KC.LAUNCHES.values()):
+            raise AssertionError(f'cache reload AP {avgs2} vs {avgs}')
+        row = {
+            'scenes_per_s': len(names) / run['fused_s'],
+            'fused_dataset_results_s': run['fused_s'],
+            'loader_alone_s': loader_s,
+            'ap_protocol_s': run['ap_s'],
+            'cache_reload_fused_s': RecordedEvaluater.runs[-1]['fused_s'],
+            'voxelize_ms_per_scene': {
+                'native': statistics.mean(vox_ms[True]),
+                'numpy': statistics.mean(vox_ms[False])},
+            'unpack_ms_per_scene': {
+                'native': statistics.mean(unpack_ms[True]),
+                'numpy': statistics.mean(unpack_ms[False])},
+            'points_in_another_voxel_c_vs_numpy': moved,
+            'mAP': avgs['all_ap'], 'mAP50': avgs['all_ap_50%'],
+            'mAP25': avgs['all_ap_25%'], 'card': smi}
+        log('[eval] ' + json.dumps(row))
+        return row
+    finally:
+        torch.use_deterministic_algorithms(False)
+        eval_cli.Evaluater = saved_cli
+        if saved_root is None:
+            os.environ.pop('BOX2MASK_EXP_ROOT', None)
+        else:
+            os.environ['BOX2MASK_EXP_ROOT'] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -961,6 +1179,11 @@ def main():
                      'kernel - twin')
     compare_forwards('nmap_forward', pred_n, pred_key, nbatch,
                      'neighbor-map path - key path')
+    del npipe, nmodel, nbatches, nbatch, pred_n, pred_nt
+    torch.cuda.empty_cache()
+
+    # ---- 11. the evaluation slice (python -m box2mask_torch.evaluate)
+    eval_phase(smi)
 
     kernels = []
     main_dtype = {'stem': 'float32'}

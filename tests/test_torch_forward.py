@@ -85,6 +85,7 @@ def _forwards(setup, extra):
     jout = JS.make_forward(jc, JS.build_model(jc, 20))(
         params, stats, {k: jnp.asarray(a) for k, a in jdev.items()})
     pc = PC.get_config(ARGS + extra)
+    pc.use_native_host_ops = False
     prets = [PV.voxelize_scene(PSyn.make_scene(seed=s, **SCENE)[0], pc)
              for s in (3, 4)]
     pdev, _ = PB.build_batch(prets, pc)

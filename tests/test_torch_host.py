@@ -38,13 +38,22 @@ SCENE = dict(num_instances=5, points_per_instance=250, floor_points=900,
     ('scannet.txt', ['--vox_bucket', '131072', '--layers', '1',
                      '--compute_dtype', 'float32', '--lr', '0.1']),
     ('scannet.txt', ['--layers', '1', '--key_conv', 'off', '--pallas_conv',
-                     'on', '--host_coordinate_maps', '--key_conv_force'])])
+                     'on', '--host_coordinate_maps', '--key_conv_force']),
+    ('scannet.txt', ['--layers', '1', '--checkpoint', 'checkpoint_1h',
+                     '--load_ckpt_closest_to', '3', '--eval_batch_size', '2',
+                     '--eval_wo_aug', '--data_dir', '/data/scannet',
+                     '--eval_training', '--eval_specific_param',
+                     '--submission_write_out',
+                     '--submission_write_out_testset', '--param_search',
+                     '--produce_visualizations', '--predict_specific_scene',
+                     'scene0011_00', '--spatial_shards', '2'])])
 def test_get_config_matches(cfg_file, cli):
     """Every field the port's config carries (the ones the port reads) has
     the JAX package's value; the rest of the JAX flags are accepted and
     ignored. The command line wins over the file. The conv-path flags are
     read, never skipped: they change the port's path as the JAX
-    package's."""
+    package's. So are the evaluation flags; a defaulted --eval_batch_size
+    drops to 1 under --key_conv off."""
     argv = ['--config', os.path.join(ROOT, 'configs', cfg_file)] + cli
     p, j = vars(PC.get_config(argv)), vars(JC.get_config(argv))
     assert set(p) - {'config'} <= set(j)
@@ -55,6 +64,35 @@ def test_get_config_matches(cfg_file, cli):
     assert p['layers'] == (1 if cli else 2)
     assert p['network_heads'] and p['eval_ths']
     assert p['bf16_acts'] == (cfg_file == 'scannet.txt')
+    evals = ('checkpoint', 'eval_wo_aug', 'eval_training', 'param_search',
+             'submission_write_out_testset', 'predict_specific_scene')
+    assert all(p[k] for k in evals) == ('--checkpoint' in cli)
+    assert p['use_native_host_ops']
+    assert p['eval_batch_size'] == (
+        2 if '--eval_batch_size' in cli else 1 if '--key_conv' in cli else 4)
+    assert (p['batch_size'] == 1) == ('--spatial_shards' in cli)
+
+
+@pytest.mark.parametrize('where', ['cli', 'config_file'])
+def test_eval_batch_size_needs_key_conv_layout(where, tmp_path):
+    """An explicit --eval_batch_size > 1 under --key_conv off is refused
+    by both packages, from the command line or a config file;
+    --sample_fixed_seed draws a seed."""
+    argv = ['--config', os.path.join(ROOT, 'configs', 'scannet.txt'),
+            '--key_conv', 'off']
+    if where == 'cli':
+        argv += ['--eval_batch_size', '2']
+    else:
+        cfg = tmp_path / 'eval.txt'
+        cfg.write_text('network_heads = [mlp_offsets]\neval_batch_size = 2\n')
+        argv = ['--config', str(cfg), '--key_conv', 'off']
+    for get_config in (PC.get_config, JC.get_config):
+        with pytest.raises(ValueError, match='eval_batch_size 1'):
+            get_config(argv)
+        assert get_config(argv + ['--eval_batch_size', '1']
+                          ).eval_batch_size == 1
+    seeded = PC.get_config(argv[:2] + ['--sample_fixed_seed'])
+    assert isinstance(seeded.fixed_seed, int) and 0 <= seeded.fixed_seed < 2**32
 
 
 def test_tables_match():
@@ -85,7 +123,7 @@ def test_batch_bit_equal(seeds):
     arrays bit for bit, for every key both carry (the JAX voxelizer on its
     NumPy branch, which the port copies)."""
     pc, jc = PC.get_config(ARGS), JC.get_config(ARGS)
-    jc.use_native_host_ops = False
+    pc.use_native_host_ops = jc.use_native_host_ops = False
     prets, jrets = [], []
     for s in seeds:
         ps, _ = PSyn.make_scene(seed=s, **SCENE)

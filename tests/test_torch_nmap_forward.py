@@ -47,6 +47,7 @@ def forwards(setup, jax_extra, port_extra):
     jout = JS.make_forward(jc, JS.build_model(jc, 20))(
         params, stats, {k: jnp.asarray(a) for k, a in jdev.items()})
     pc = PC.get_config(ARGS + port_extra)
+    pc.use_native_host_ops = False
     rets = [PV.voxelize_scene(PSyn.make_scene(seed=s, **SCENE)[0], pc)
             for s in (3, 4)]
     pdev, _ = PB.build_batch(rets, pc, mode='val')

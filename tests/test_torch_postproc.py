@@ -167,6 +167,7 @@ def pipelines_vs_jax(extra, seeds, jax_device_maps=None):
     jc = JC.get_config(ARGS)
     jc.use_native_host_ops = False
     pc = PC.get_config(ARGS + extra)
+    pc.use_native_host_ops = False
     jbatches = [jax_batch(s, jax_device_maps) for s in seeds]
     pbatches = [PB.build_batch(
         [PV.voxelize_scene(PSyn.make_scene(seed=x, **SCENE)[0], pc)

@@ -66,6 +66,7 @@ def jax_batch(extra):
 
 def port_batch(extra):
     pc = PC.get_config(ARGS + extra)
+    pc.use_native_host_ops = False
     rets = scenes(PSyn.make_scene, PV.voxelize_scene, PSup.build_supervision,
                   pc)
     dev, _ = PB.build_batch(rets, pc, PT.SCANNET_SEMANTIC_ID2IDX)

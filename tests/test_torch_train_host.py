@@ -45,7 +45,7 @@ AUG = ['--augmentation', '--scaling_aug', '1.0', '0.8', '1.2',
 def configs(extra=()):
     pc, jc = PC.get_config(ARGS + list(extra)), JC.get_config(
         ARGS + list(extra))
-    jc.use_native_host_ops = False
+    pc.use_native_host_ops = jc.use_native_host_ops = False
     return pc, jc
 
 
