@@ -5,8 +5,8 @@ use; same names, defaults, derived fields and checks).
 Reads the same ``configs/*.txt`` format (``key = value`` lines, bare flags,
 ``[a, b, c]`` lists, ``#`` comments) without depending on configargparse.
 Precedence: CLI > config file > default. Flags of the JAX package that the
-port does not read yet (other datasets, multi-device, the param-search
-grids) are accepted, from a config file or the command line, and ignored.
+port does not read yet (multi-device, visualizations) are accepted, from a
+config file or the command line, and ignored.
 The conv-path flags are read, with the JAX package's names, defaults and
 choices:
 ``--key_conv {on,eval,off}`` (key-matching convs, or neighbor maps built on
@@ -56,8 +56,20 @@ def config_parser():
     add('--config', type=str, default=None, help='config file path')
     add('--exp_name', type=str, default=None)
     add('--dataset_name', type=str, default='scannet')
+    add('--data_split', type=str,
+        default='data/scannet/scannetv2_official_split.npz')
     add('--num_workers', type=int, default=16)
     add('--use_normals_input', default=False, action='store_true')
+    # arkitscenes
+    add('--subsample_rate', type=int, default=10)
+    # s3dis
+    add('--s3dis_split_fold', default=5, type=int)
+    add('--point_sampling_rate', default=None, type=float)
+    add('--superpoint_algo', default='learned_superpoint', type=str,
+        choices=['learned_superpoint'])
+    add('--ignore_wall_ceiling_floor', default=False, action='store_true')
+    add('--ignore_ceiling_floor', default=False, action='store_true')
+    add('--full_resolution', default=False, action='store_true')
     # synthetic dataset scale (dataset-free runs, tests, chip_smoke.py)
     add('--synthetic_instances', type=int, default=8)
     add('--synthetic_points_per_instance', type=int, default=600)
@@ -91,8 +103,13 @@ def config_parser():
     add('--eval_specific_param', default=False, action='store_true')
     add('--submission_write_out', default=False, action='store_true')
     add('--submission_write_out_testset', default=False, action='store_true')
-    # modes the port's evaluate CLI refuses, naming the ROADMAP item
+    # param search (box2mask_tpu/config.py:113-118): linspace(a, b, n) each
     add('--param_search', default=False, action='store_true')
+    add('--cluster_th_search', default=[0.3, 0.8, 6], nargs=3, type=float)
+    add('--score_th_search', default=[0, 0.2, 5], nargs=3, type=float)
+    add('--mask_bin_th_search', default=[0.2, 0.35, 4], nargs=3, type=float)
+    add('--mask_nms_th_search', default=[0.4, 0.8, 5], nargs=3, type=float)
+    # modes the port's evaluate CLI refuses, naming the ROADMAP item
     add('--produce_visualizations', default=False, action='store_true')
     add('--predict_specific_scene', type=str, default=None)
     add('--spatial_shards', type=int, default=0)
@@ -119,17 +136,20 @@ def config_parser():
     add('--use_lr_scheduler', default=False, action='store_true')
     add('--lr_scheduler_start_epoch', type=int, default=None)
     add('--lr_scheduler_end_epoch', type=int, default=None)
-    # augmentations (the ones datasets/augmentation.augment_scene reads)
+    # augmentations (datasets/augmentation.py and the readers)
     add('--augmentation', default=False, action='store_true')
     add('--position_jittering', type=float, default=[0.00, 0.01], nargs=2)
     add('--scaling_aug', type=float, default=[0.0, 0.9, 1.1], nargs=3)
     add('--color_jittering_aug', default=[0.0, 0.1], type=float, nargs=2)
+    add('--HAIS_jitter_aug', default=False, action='store_true')
     add('--rotation_aug', type=float, default=[0.0, math.pi / 100, 1],
         nargs='+')
     add('--rotation_90_aug', default=False, action='store_true')
     add('--mix_3d_color_aug', default=False, action='store_true')
     add('--apply_hue_aug', default=False, action='store_true')
     add('--flipping_aug', default=0.0, type=float)
+    add('--elastic_distortion', default=0.0, type=float)
+    add('--elastic_distortion_HAIS', default=0.0, type=float)
     add('--chromatic_auto_contrast', default=0.0, type=float)
     add('--chromatic_translation', type=float, default=[0.0, 0.1], nargs=2)
     add('--random_brightness', type=float, default=[0.0, 0.1], nargs=2)

@@ -1,7 +1,6 @@
 """Weak-label association: GT bounding boxes -> per-point / per-oversegment pseudo
-instance labels, fully vectorized (the port's copy of the ScanNet part of
-box2mask_tpu/datasets/association.py:1-166; ARKitScenes and S3DIS wait,
-ROADMAP A15).
+instance labels, fully vectorized (the port's copy of
+box2mask_tpu/datasets/association.py).
 
 Behavior-parity with the reference's approx_association logic, which is a Python
 loop over segments (models/dataloader.py:203-314 ScanNet, :539-621 ARKitScenes,
@@ -43,6 +42,18 @@ def aabb_occupancy(points, min_corner, max_corner):
     inside = (points[None, :, :] >= min_corner[:, None, :]) & \
              (points[None, :, :] <= max_corner[:, None, :])
     return inside.all(axis=2)
+
+
+def obb_occupancy(points, centers, bounds, rotations):
+    """(B, P) bool for oriented boxes: rot @ (p - c) within +-bounds
+    (reference models/dataloader.py:552-556)."""
+    B = len(centers)
+    occ = np.zeros((B, len(points)), bool)
+    for i in range(B):
+        rot = rotations[i].reshape(3, 3)
+        local = (rot @ (points - centers[i]).T).T
+        occ[i] = np.all(local >= -bounds[i], axis=1) & np.all(local <= bounds[i], axis=1)
+    return occ
 
 
 def _per_point_from_occupancy(occ, instance_ids, bb_volume, smallest_bb):
@@ -154,3 +165,91 @@ def associate_scannet(labels, scene, cfg, unique_segs):
     inst_pp = np.full(len(scene['positions']), UNKNOWN, np.int64)
     inst_pp[ok] = inst_ps[seg_rows[ok]]
     return inst_pp, inst_ps, noisy_bbs
+
+
+def associate_arkit(labels, scene, cfg, unique_segs):
+    """ARKitScenes association with oriented boxes (models/dataloader.py:539-621)."""
+    instance_ids = labels['unique_instances']
+    centers = labels['per_instance_bb_centers']
+    bounds = labels['per_instance_bb_bounds'] + 0.05
+    rotations = labels['per_instance_bb_rotations']
+    occ = obb_occupancy(scene['positions'], centers, bounds, rotations)
+    num = occ.sum(axis=0)
+    first = occ.argmax(axis=0)
+
+    if cfg.point_association:
+        inst_pp, _, _ = _per_point_from_occupancy(
+            occ, instance_ids, np.prod(2 * bounds, 1), False)
+        return inst_pp, None
+
+    S = len(unique_segs)
+    seg_rows = _segment_rows(unique_segs, scene['segments'])
+    ok = seg_rows >= 0
+    seg_min = np.full(S, np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(seg_min, seg_rows[ok], num[ok])
+    seg_min = np.where(seg_min == np.iinfo(np.int64).max, UNKNOWN, seg_min)
+
+    inst_ps = np.full(S, UNKNOWN, np.int64)
+    inst_ps[seg_min == 0] = BG
+    first_pt = _first_point_per_segment(seg_rows, num == 1, S)
+    sel = (seg_min == 1) & (first_pt >= 0)
+    inst_ps[sel] = instance_ids[first[first_pt[sel]]]
+
+    inst_pp = np.full(len(scene['positions']), UNKNOWN, np.int64)
+    inst_pp[ok] = inst_ps[seg_rows[ok]]
+    return inst_pp, inst_ps
+
+
+def associate_s3dis(labels, scene, cfg, unique_segs):
+    """S3DIS association: foreground boxes first, then background boxes for still-
+    undecided points; majority-vote segment pooling (models/dataloader.py:805-927).
+    Returns (inst_pp_pooled, sem_pp, inst_ps, sem_ps) or (inst_pp, sem_pp)."""
+    sem = labels['per_instance_semantics']
+    scene_fg = tables.s3dis_foreground_mask(sem, cfg)
+    P = len(scene['positions'])
+
+    def assoc(mask, undecided):
+        ids = labels['unique_instances'][mask]
+        sems = labels['per_instance_semantics'][mask]
+        centers = labels['per_instance_bb_centers'][mask]
+        bounds = labels['per_instance_bb_bounds'][mask] + 0.0001
+        occ = aabb_occupancy(scene['positions'], centers - bounds, centers + bounds)
+        num = occ.sum(axis=0)
+        # reference assigns per-box in index order; the LAST containing box wins
+        last = occ.shape[0] - 1 - occ[::-1].argmax(axis=0) if occ.shape[0] else None
+        single = (num == 1) & undecided
+        multi = (num > 1) & undecided
+        inst_new = np.full(P, BG, np.int64)
+        sem_new = np.full(P, BG, np.int64)
+        if occ.shape[0]:
+            inst_new[single] = ids[last[single]]
+            sem_new[single] = sems[last[single]]
+        inst_new[multi] = UNKNOWN
+        sem_new[multi] = tables.IGNORE
+        return inst_new, sem_new
+
+    all_pts = np.ones(P, bool)
+    inst_pp, sem_pp = assoc(scene_fg, all_pts)
+    undecided = inst_pp == BG
+    inst_bg, sem_bg = assoc(~scene_fg, undecided)
+    inst_pp = np.where(undecided, inst_bg, inst_pp)
+    sem_pp = np.where(undecided, sem_bg, sem_pp)
+    inst_pp[inst_pp == BG] = UNKNOWN
+    sem_pp[sem_pp == BG] = tables.IGNORE
+
+    if cfg.point_association:
+        return inst_pp, sem_pp
+
+    S = len(unique_segs)
+    seg_rows = _segment_rows(unique_segs, scene['segments'])
+    ok = seg_rows >= 0
+    inst_ps = np.full(S, UNKNOWN, np.int64)
+    sem_ps = np.full(S, tables.IGNORE, np.int64)
+    have = np.unique(seg_rows[ok])
+    inst_ps[have] = segment_mode(inst_pp[ok], seg_rows[ok], S)[have]
+    sem_ps[have] = segment_mode(sem_pp[ok], seg_rows[ok], S)[have]
+    inst_pp_pooled = np.full(P, UNKNOWN, np.int64)
+    inst_pp_pooled[ok] = inst_ps[seg_rows[ok]]
+    sem_pp_pooled = np.full(P, tables.IGNORE, np.int64)
+    sem_pp_pooled[ok] = sem_ps[seg_rows[ok]]
+    return inst_pp_pooled, sem_pp, inst_ps, sem_ps

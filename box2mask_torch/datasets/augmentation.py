@@ -1,11 +1,10 @@
-"""Augmentation primitives (pure NumPy — no albumentations/open3d): the
-port's copy of the parts of box2mask_tpu/datasets/augmentation.py that
-augment_scene reaches (the HAIS jitter and the elastic distortions, which
-only the real readers use, wait with them).
+"""Augmentation primitives (pure NumPy/SciPy — no albumentations/open3d): the
+port's copy of box2mask_tpu/datasets/augmentation.py.
 
 Behavior-parity with dataprocessing/augmentation.py of the reference:
   * geometric: xyz rotation about the centroid (open3d mesh.rotate semantics),
-    90-degree z rotations, x-flip, origin-centered scaling, position jitter,
+    90-degree z rotations, x-flip, origin-centered scaling, HAIS affine jitter,
+    elastic distortion (two variants), position jitter,
   * color: jitter, brightness, chromatic translation / auto-contrast, the mix3d
     pipeline (RandomBrightnessContrast + RGBShift, each p=.5, on a uint8 pseudo
     image) followed by fixed mean/std normalization, and the hue/sat/value aug.
@@ -19,6 +18,10 @@ HSV for the hue aug).
 from __future__ import annotations
 
 import numpy as np
+import scipy.interpolate
+import scipy.ndimage
+
+SCANNET_ELASTIC_DISTORT_PARAMS = ((0.2, 0.4), (0.8, 1.6))
 
 MIX3D_COLOR_MEAN = (0.47793125906962, 0.4303257521323044, 0.3749598901421883)
 MIX3D_COLOR_STD = (0.2834475483823543, 0.27566157565723015, 0.27018971370874995)
@@ -69,10 +72,62 @@ def scale_points(positions, min_scale=0.9, max_scale=1.1, rng=np.random):
     return positions * rng.uniform(min_scale, max_scale)
 
 
+def hais_jitter(positions, rng=np.random):
+    """HAIS affine jitter: recentre, random 3x3 noise + z rotation
+    (scannet.py:177-185)."""
+    p = positions - positions.mean(0)
+    m = np.eye(3) + rng.randn(3, 3) * 0.1
+    theta = rng.rand() * 2 * np.pi
+    rot = np.array([[np.cos(theta), np.sin(theta), 0],
+                    [-np.sin(theta), np.cos(theta), 0], [0, 0, 1]])
+    return p @ (m @ rot)
+
+
 def position_jitter(positions, sigma=0.01, rng=np.random):
     return positions + sigma * rng.randn(*positions.shape)
 
 
+def elastic_distortion(coords, granularity, magnitude, rng=np.random):
+    """Spatio-temporal-segmentation-style elastic distortion: blurred Gaussian
+    noise grid, trilinear interpolation."""
+    blurx = np.ones((3, 1, 1, 1), np.float32) / 3
+    blury = np.ones((1, 3, 1, 1), np.float32) / 3
+    blurz = np.ones((1, 1, 3, 1), np.float32) / 3
+    cmin = coords.min(0)
+    noise_dim = ((coords - cmin).max(0) // granularity).astype(int) + 3
+    noise = rng.randn(*noise_dim, 3).astype(np.float32)
+    for _ in range(2):
+        noise = scipy.ndimage.convolve(noise, blurx, mode='constant', cval=0)
+        noise = scipy.ndimage.convolve(noise, blury, mode='constant', cval=0)
+        noise = scipy.ndimage.convolve(noise, blurz, mode='constant', cval=0)
+    ax = [np.linspace(d_min, d_max, d) for d_min, d_max, d in
+          zip(cmin - granularity, cmin + granularity * (noise_dim - 2),
+              noise_dim)]
+    interp = scipy.interpolate.RegularGridInterpolator(
+        ax, noise, bounds_error=False, fill_value=0)
+    return coords + interp(coords) * magnitude
+
+
+def hais_elastic(x, gran, mag, rng=np.random):
+    """HAIS parameterization of elastic distortion (3 separate noise grids,
+    3 blur rounds)."""
+    blur0 = np.ones((3, 1, 1), np.float32) / 3
+    blur1 = np.ones((1, 3, 1), np.float32) / 3
+    blur2 = np.ones((1, 1, 3), np.float32) / 3
+    bb = np.abs(x).max(0).astype(np.int32) // int(gran) + 3
+    noise = [rng.randn(bb[0], bb[1], bb[2]).astype(np.float32)
+             for _ in range(3)]
+    for blur in (blur0, blur1, blur2, blur0, blur1, blur2):
+        noise = [scipy.ndimage.convolve(n, blur, mode='constant', cval=0)
+                 for n in noise]
+    ax = [np.linspace(-(b - 1) * gran, (b - 1) * gran, b) for b in bb]
+    interp = [scipy.interpolate.RegularGridInterpolator(
+        ax, n, bounds_error=False, fill_value=0) for n in noise]
+    g = np.hstack([i(x)[:, None] for i in interp])
+    return x + g * mag
+
+
+# ---------------------------------------------------------------------- color
 def color_jittering(colors, lo=-0.05, hi=0.05, rng=np.random):
     return np.clip(colors + rng.uniform(lo, hi, colors.shape), 0, 1)
 

@@ -1,5 +1,5 @@
 """Dataset classes + prefetching batch loader (the port's copy of
-box2mask_tpu/datasets/loader.py:28-125 and :189-314, single device).
+box2mask_tpu/datasets/loader.py, single device).
 
 The loader is a thread-pool prefetcher feeding padded host batches: the
 per-scene work is vectorized NumPy (it releases the GIL), and batches are
@@ -7,20 +7,22 @@ built ahead of the device in a bounded queue. Every scene draws its
 augmentation from its own RandomState (`scene_rng`), so under --fixed_seed a
 scene gives the same batch whatever the worker count or order.
 
-Datasets: 'synthetic' (datasets/synthetic.py) for dataset-free runs, tests
-and chip_smoke.py. The ScanNet, ARKitScenes and S3DIS readers are not ported
-yet (ROADMAP A15).
+Datasets: scannet / arkitscenes / s3dis (the readers in datasets/{name}.py,
+on the on-disk layouts they document) plus 'synthetic'
+(datasets/synthetic.py) for dataset-free runs and tests.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from box2mask_torch.datasets import augmentation, supervision, synthetic
+from box2mask_torch.datasets import (arkitscenes, augmentation, s3dis,
+                                     scannet, supervision, synthetic)
 from box2mask_torch.datasets.batching import build_batch
 from box2mask_torch.datasets.tables import get_tables
 from box2mask_torch.datasets.voxelize import voxelize_scene
@@ -121,14 +123,63 @@ class Synthetic(SceneDataset):
         return scene, labels
 
 
-DATASETS = {'synthetic': Synthetic}
+class ScanNet(SceneDataset):
+    dataset_name = 'scannet'
+
+    def _build_data_list(self, mode, cfg):
+        if mode == 'predict_specific_scene':
+            return [cfg.predict_specific_scene]
+        if mode == 'train+val':
+            d = np.load(cfg.data_split, allow_pickle=True)
+            return np.concatenate((d['train'], d['val']))
+        return np.load(cfg.data_split, allow_pickle=True)[mode]
+
+    def read_scene(self, scene_name, rng=np.random):
+        return scannet.process_scene(scene_name, self.mode, self.cfg,
+                                     do_augmentations=self.do_augmentations,
+                                     rng=rng)
+
+
+class ARKitScenes(SceneDataset):
+    dataset_name = 'arkitscenes'
+
+    def _build_data_list(self, mode, cfg):
+        if mode == 'predict_specific_scene':
+            return [cfg.predict_specific_scene]
+        sub = {'train': '3dod/Training', 'val': '3dod/Validation'}[mode]
+        files = [f for f in os.listdir(os.path.join(cfg.data_dir, sub))
+                 if f.startswith('4')]
+        return np.array(files)
+
+    def read_scene(self, scene_name, rng=np.random):
+        return arkitscenes.process_scene(
+            scene_name, self.mode, self.cfg,
+            do_augmentations=self.do_augmentations,
+            subsample_rate=self.cfg.subsample_rate, rng=rng)
+
+
+class S3DIS(SceneDataset):
+    dataset_name = 's3dis'
+
+    def _build_data_list(self, mode, cfg):
+        if mode == 'predict_specific_scene':
+            return [cfg.predict_specific_scene]
+        return s3dis.get_scene_names(mode, cfg)
+
+    def read_scene(self, scene_name, rng=np.random):
+        return s3dis.process_scene(scene_name, self.mode, self.cfg,
+                                   do_augmentations=self.do_augmentations,
+                                   rng=rng)
+
+
+DATASETS = {'scannet': ScanNet, 'arkitscenes': ARKitScenes, 's3dis': S3DIS,
+            'synthetic': Synthetic}
 
 
 def get_dataset(cfg, mode, do_augmentations=True):
     if cfg.dataset_name not in DATASETS:
-        raise NotImplementedError(
-            f'the {cfg.dataset_name} reader is not ported yet (ROADMAP A15); '
-            "use --dataset_name synthetic")
+        raise ValueError(f'unknown dataset {cfg.dataset_name!r}: one of '
+                         f'{sorted(DATASETS)}')
     return DATASETS[cfg.dataset_name](mode, cfg, do_augmentations)
 
 

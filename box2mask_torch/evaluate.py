@@ -2,15 +2,16 @@
 configs/scannet.txt --fixed_seed 10``.
 
 The counterpart of the root evaluate.py: a full validation eval by default
-(the ScanNet AP table), the submission write-out under
---submission_write_out[_testset], and under --eval_training an eval of every
-checkpoint of the experiment, its mAP scalars in
+(the dataset's protocol: the ScanNet AP table, the ARKitScenes VOC mAP, the
+S3DIS mPrecision / mRecall), the submission write-out under
+--submission_write_out[_testset], the eval-threshold grid under
+--param_search (`<results>/param_search.txt`), and under --eval_training an
+eval of every checkpoint of the experiment, its mAP scalars in
 `<exp>/eval_training/metrics.jsonl`. Validation is evaluated WITH
 augmentations under the fixed seed unless --eval_wo_aug (test-time
 augmentation). It runs on the card; `BOX2MASK_PLATFORM=cpu` asks for the
 CPU, and without CUDA and without that request it raises. Not ported yet:
---param_search (ROADMAP A10), --produce_visualizations and
---predict_specific_scene (A20).
+--produce_visualizations and --predict_specific_scene (ROADMAP A20).
 """
 
 import os
@@ -27,9 +28,6 @@ from box2mask_torch.runtime import resolve_device
 def main(argv=None):
     cfg = get_config(argv)
     device = resolve_device(os.environ.get('BOX2MASK_PLATFORM') or None)
-    if cfg.param_search:
-        raise NotImplementedError('--param_search is not ported to '
-                                  'box2mask_torch yet (ROADMAP A10)')
     if cfg.predict_specific_scene or cfg.produce_visualizations:
         raise NotImplementedError('visualizations are not ported to '
                                   'box2mask_torch yet (ROADMAP A20)')
@@ -40,6 +38,8 @@ def main(argv=None):
         return
 
     ds = get_dataset(cfg, 'val', do_augmentations=not cfg.eval_wo_aug)
+    if cfg.param_search:
+        return Evaluater(cfg, device=device).param_search(ds)
     if cfg.eval_training:
         writer = ScalarLog(os.path.join(cfg.exp_path, 'eval_training',
                                         'metrics.jsonl'))

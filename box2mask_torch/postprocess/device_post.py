@@ -1,6 +1,7 @@
 """On-device detection -> masks post-processing, and the host unpack (port of
 box2mask_tpu/postprocess/device_post.py: _pack_bits :44, _make_core :57,
-make_device_postproc :166, make_fused_infer's per-scene packing :229-251,
+make_device_postproc :166, make_fused_infer's per-scene packing :229-251
+(with the per-voxel semantics plane),
 host unpack :264-411, both batch layouts as at :228 and :394-398). The
 voxel-level unpack (no segment pooling, and the top-k overflow fallback)
 runs through the C unpack of native/ as the JAX package's _scene_result
@@ -145,9 +146,10 @@ def make_device_postproc(cfg, valid_class_ids, is_foreground, max_masks=256):
 
 def fused_postproc(core, cfg, pred, batch, ths, top_k):
     """Every scene of the batch through `core` on its own voxel window, the
-    best `top_k` rows packed, stacked into one dict of (B, ...) tensors. A
-    host-maps batch (no key pyramid) holds one scene (JAX
-    device_post.py:228)."""
+    best `top_k` rows packed, stacked into one dict of (B, ...) tensors;
+    with the per-voxel semantics head, its argmax over the window rides
+    along as u8 `vox_sem` (JAX device_post.py:243-249). A host-maps batch
+    (no key pyramid) holds one scene (JAX device_post.py:228)."""
     B = batch['keys0_b'].shape[0] if 'keys0_b' in batch else 1
     vs = batch['valid0'].shape[0] // B
     outs = []
@@ -162,6 +164,10 @@ def fused_postproc(core, cfg, pred, batch, ths, top_k):
         o['conf'] = o['conf'][:top_k]
         o['label_idx'] = o['label_idx'][:top_k]
         o['topk_overflow'] = o['n_keep'] > top_k
+        if cfg.mlp_per_vox_semantics in pred:
+            o['vox_sem'] = torch.argmax(
+                pred[cfg.mlp_per_vox_semantics][b * vs:(b + 1) * vs],
+                dim=1).to(torch.uint8)
         outs.append(o)
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 

@@ -55,7 +55,22 @@ Phases, in order; any failure exits non-zero:
      written, and a second eval from the cache with the same AP and no
      launch; one `[eval]` line of its times (scenes/s of
      fused_dataset_results, the loader's seconds alone, seconds of the AP
-     protocol, native and NumPy voxelize and unpack ms per scene).
+     protocol, native and NumPy voxelize and unpack ms per scene);
+ 12. the datasets: on-disk ScanNet v2, ARKitScenes and S3DIS fixtures of
+     4 scenes each at the size of users' scenes (150k-vertex meshes;
+     300k-vertex meshes with oriented-box annotations; 1M-point rooms under
+     Area_5 with learned-superpoint npys; datasets/fixtures.py), then for
+     each preset (configs/scannet.txt, arkitscenes.txt, s3dis_fold5.txt)
+     the CLI's main() from a checkpoint of seeded weights: every key-path
+     forward kernel mode launched, no twin, no neighbor-map conv; the
+     dataset's protocol ran and returned a finite result; ScanNet and
+     ARKitScenes results bit-equal to FusedInferencePipeline.run on the
+     same batches, S3DIS's raw heads (the non-fused route) bit-equal to
+     engine/state.forward; then --param_search on the ScanNet fixtures over
+     a 2 x 1 x 1 x 2 grid, on the device route at every point, each point's
+     results bit-equal to the pipeline's at its thresholds; one
+     `[datasets]` line per run (scenes/s, the loader's seconds alone, the
+     protocol's seconds, masks per scene, launches).
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and last `{"ok": true, "device": {...}}`.
 """
@@ -77,7 +92,8 @@ import torch
 from box2mask_torch import evaluate as eval_cli
 from box2mask_torch.config import get_config
 from box2mask_torch.convert import kaiming_init_
-from box2mask_torch.datasets import batching, loader, synthetic, tables
+from box2mask_torch.datasets import (batching, fixtures, loader, synthetic,
+                                     tables)
 from box2mask_torch.datasets.voxelize import voxelize_scene
 from box2mask_torch.engine import checkpoint, state as S
 from box2mask_torch.engine.evaluate import Evaluater
@@ -1075,6 +1091,303 @@ def eval_phase(smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 12: the datasets. On-disk fixtures at the size of users' scenes,
+# written from a seed into a temporary directory (datasets/fixtures.py):
+# rooms of gridded surfaces and box-shaped objects in each reader's layout.
+DATASET_SCENES = 4
+DATASET_FIXTURES = {        # vertices (ScanNet, ARKitScenes) or points
+    'scannet': 150_000,     # ~ ScanNet v2 vh_clean_2 meshes
+    'arkitscenes': 300_000,  # ~150k points after the preset's [::2]
+    's3dis': 1_000_000,     # ~250k points after the preset's 0.25 rate
+}
+DATASET_PRESETS = {'scannet': 'scannet.txt', 'arkitscenes': 'arkitscenes.txt',
+                   's3dis': 's3dis_fold5.txt'}
+PROTOCOLS = {'scannet': 'scannet_eval', 'arkitscenes': 'arkitscenes_eval',
+             's3dis': 's3dis_eval'}
+PARAM_GRID = ['--cluster_th_search', '0.4', '0.5', '2', '--score_th_search',
+              '0.05', '0.05', '1', '--mask_bin_th_search', '0.3', '0.3', '1',
+              '--mask_nms_th_search', '0.5', '0.6', '2']
+
+
+class DatasetEvaluater(Evaluater):
+    """The CLI's Evaluater, recording the wall seconds of its prediction
+    and protocol steps, what they returned, and each call of the
+    post-processing routes (per thresholds: results, device route or
+    host oracle)."""
+    runs = []
+
+    def _timed(self, key, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.runs[-1].setdefault(key, 0.0)
+        self.runs[-1][key] += time.perf_counter() - t0
+        return out
+
+    def _run(self):
+        if not self.runs or self.runs[-1]['ev'] is not self:
+            self.runs.append({'ev': self, 'post': [], 'protocols': []})
+        return self.runs[-1]
+
+    def fused_dataset_results(self, dataset, ths=None, cache=True):
+        run = self._run()
+        out = self._timed('predict_s', super().fused_dataset_results,
+                          dataset, ths, cache)
+        run.update(results=out[0], entries=out[1])
+        return out
+
+    def dataset_prediction(self, dataset, batch_size=1, cache=True):
+        run = self._run()
+        out = self._timed('predict_s', super().dataset_prediction, dataset,
+                          batch_size, cache)
+        run['entries'] = out
+        return out
+
+    def pred_entries_to_results(self, entries, ths=None):
+        run = self._run()
+        device = self._post_on_device()
+        out = self._timed('post_s', super().pred_entries_to_results,
+                          entries, ths)
+        run['post'].append((tuple(float(t) for t in (
+            ths if ths is not None else self.cfg.eval_ths)), device, out))
+        return out
+
+    def _protocol(name):
+        def call(self, *a, **kw):
+            run = self._run()
+            run['protocols'].append(name)
+            out = self._timed('protocol_s', getattr(Evaluater, name), self,
+                              *a, **kw)
+            run['result'] = out
+            return out
+        return call
+
+    scannet_eval = _protocol('scannet_eval')
+    arkitscenes_eval = _protocol('arkitscenes_eval')
+    s3dis_eval = _protocol('s3dis_eval')
+    s3dis_eval_fused = _protocol('s3dis_eval_fused')
+    del _protocol
+
+    def _s3dis_protocol(self, per_scene):
+        self._run()['masks_per_scene'] = [len(p[3]) for p in per_scene]
+        return self._timed('s3dis_protocol_s', super()._s3dis_protocol,
+                           per_scene)
+
+
+def write_dataset_fixtures(root):
+    """The three datasets, DATASET_SCENES scenes each (val split): returns
+    {dataset: (data_dir, data_split)}."""
+    dirs = {d: os.path.join(root, d) for d in DATASET_PRESETS}
+    os.makedirs(dirs['scannet'])
+    split = fixtures.write_scannet(
+        dirs['scannet'], [f'scene07{i:02d}_00' for i in range(DATASET_SCENES)],
+        n_vertices=DATASET_FIXTURES['scannet'], seed=21)
+    fixtures.write_arkitscenes(
+        dirs['arkitscenes'], [f'4200{i:04d}' for i in range(DATASET_SCENES)],
+        'Validation', n_vertices=DATASET_FIXTURES['arkitscenes'], seed=22)
+    fixtures.write_s3dis(
+        dirs['s3dis'], [f'Area_5.office_{i + 1}'
+                        for i in range(DATASET_SCENES)],
+        n_points=DATASET_FIXTURES['s3dis'], seed=23)
+    return {d: (dirs[d], split) for d in dirs}
+
+
+def finite_result(dataset, out):
+    """The protocol's headline numbers: ScanNet AP, ARKitScenes mAP, S3DIS
+    mRecall and semantic accuracy (mPrecision is NaN when no predicted
+    instance survives, as in the JAX package)."""
+    if dataset == 'scannet':
+        vals = [out['all_ap'], out['all_ap_50%'], out['all_ap_25%']]
+    elif dataset == 'arkitscenes':
+        vals = [out]
+    else:
+        vals = [out['mRecall'], out['semantic_acc'], out['semantic_mIoU']]
+    return all(np.isfinite(v) for v in vals), vals
+
+
+def same_results(a, b):
+    return sorted(a) == sorted(b) and all(
+        np.array_equal(a[n]['conf'], b[n]['conf'])
+        and np.array_equal(a[n]['label_id'], b[n]['label_id'])
+        and np.array_equal(a[n]['mask'], b[n]['mask']) for n in b)
+
+
+def datasets_phase(smi):
+    """Phase 12: the evaluation CLI over each dataset's reader on the card,
+    from a checkpoint; returns {dataset, or 'param_search': the key_conv
+    launches of its run by mode}."""
+    root = tempfile.mkdtemp(prefix='b2m_datasets_')
+    saved_root = os.environ.get('BOX2MASK_EXP_ROOT')
+    os.environ['BOX2MASK_EXP_ROOT'] = os.path.join(root, 'exp')
+    saved_cli = eval_cli.Evaluater
+    eval_cli.Evaluater = DatasetEvaluater
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        data = write_dataset_fixtures(os.path.join(root, 'data'))
+        log(f'[datasets] fixtures written in {time.perf_counter() - t0:.1f}'
+            f' s: {DATASET_SCENES} scenes each of {DATASET_FIXTURES}')
+        for dataset, preset in DATASET_PRESETS.items():
+            data_dir, split = data[dataset]
+            args = ['--config', os.path.join(ROOT, 'configs', preset),
+                    '--data_dir', data_dir, '--data_split', split,
+                    '--fixed_seed', '12']
+            launches[dataset] = dataset_eval(dataset, args, smi)
+        data_dir, split = data['scannet']
+        launches['param_search'] = param_search_check(
+            ['--config', os.path.join(ROOT, 'configs', 'scannet.txt'),
+             '--data_dir', data_dir, '--data_split', split, '--fixed_seed',
+             '12', '--param_search'] + PARAM_GRID, smi)
+        return launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+        eval_cli.Evaluater = saved_cli
+        if saved_root is None:
+            os.environ.pop('BOX2MASK_EXP_ROOT', None)
+        else:
+            os.environ['BOX2MASK_EXP_ROOT'] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cli_run(args, ckpt_seed=2):
+    """A checkpoint of seeded kaiming weights for the config, then the CLI's
+    main() with every count set to 0 just before it and read just after:
+    (cfg, state, the DatasetEvaluater run, main's return, counts)."""
+    cfg = get_config(args)
+    valid_ids = tables.get_tables(cfg.dataset_name)[0]
+    state = S.init_state(cfg, S.build_model(cfg, len(valid_ids)),
+                         S.make_optimizer(cfg), seed=ckpt_seed)
+    ckpt_name = os.path.basename(checkpoint.save_checkpoint(
+        cfg.checkpoint_path, state, 3600.0, 0, 0))[:-5]
+    torch.cuda.synchronize()
+    KC.reset_counts()
+    PC.reset_counts()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    out = eval_cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (dict(KC.LAUNCHES), dict(KC.PLAIN_CALLS), dict(PC.LAUNCHES),
+              dict(PC.PLAIN_CALLS), dict(ops.XLA_CALLS))
+    if (min(counts[0][m] for m in FWD_MODES) == 0
+            or sum(counts[1].values()) + sum(counts[3].values()) != 0
+            or sum(counts[2].values()) + sum(counts[4].values()) != 0):
+        raise AssertionError(f'{args}: launches {counts}: not every key-path '
+                             'kernel mode, or a twin or a neighbor-map conv')
+    run = DatasetEvaluater.runs[-1]
+    if run['ev'].ckpt_name != ckpt_name:
+        raise AssertionError(f'checkpoint not loaded ({run["ev"].ckpt_name})')
+    return cfg, state, run, out, counts, wall
+
+
+def materialize(cfg, batch_size):
+    """The val loader's batches as the CLI builds them, and its seconds."""
+    ds = loader.get_dataset(cfg, 'val', do_augmentations=not cfg.eval_wo_aug)
+    t0 = time.perf_counter()
+    batches = list(ds.get_loader(shuffle=False, drop_last=False,
+                                 batch_size=batch_size))
+    return batches, time.perf_counter() - t0
+
+
+def pipeline_results(cfg, model, batches, ths):
+    valid_ids, _, _, is_fg = tables.get_tables(cfg.dataset_name)
+    pipe = FusedInferencePipeline(cfg, valid_ids, is_fg, model=model,
+                                  top_k=128)
+    want = {}
+    for r, _, _, _ in pipe.run(None, batches, ths):
+        want.update(r)
+    return want
+
+
+def dataset_eval(dataset, args, smi):
+    """One dataset's eval through the CLI, held to the pipeline (ScanNet,
+    ARKitScenes: the fused route) or to engine/state.forward (S3DIS: the
+    non-fused route's raw heads); one `[datasets]` line."""
+    cfg, state, run, out, counts, wall = cli_run(args)
+    if run['protocols'] != [PROTOCOLS[dataset]]:
+        raise AssertionError(f'{dataset}: protocols {run["protocols"]}')
+    ok, vals = finite_result(dataset, out)
+    if not ok:
+        raise AssertionError(f'{dataset}: protocol result {vals}')
+    names = sorted(str(s['name']) for _, _, h in run['entries']
+                   for s in h['scene'])
+    if len(names) != DATASET_SCENES:
+        raise AssertionError(f'{dataset}: scenes {names}')
+    if dataset == 's3dis':
+        batches, loader_s = materialize(cfg, 1)
+        device = next(state.model.parameters()).device
+        n_heads = 0
+        for (dev_np, host), (pred, _, h) in zip(batches, run['entries']):
+            want = S.forward(state.model, upload(dev_np, device))
+            if [s['name'] for s in host['scene']] != [
+                    s['name'] for s in h['scene']]:
+                raise AssertionError('s3dis: batch order')
+            for k, v in want.items():
+                if not np.array_equal(pred[k], v.cpu().numpy()):
+                    raise AssertionError(f's3dis {k}: dataset_prediction\'s '
+                                         'head differs from state.forward')
+                n_heads += 1
+        check = (f'raw heads bit-equal to engine/state.forward ({n_heads} '
+                 'head arrays)')
+        n_masks = run['masks_per_scene']
+    else:
+        batches, loader_s = materialize(cfg, cfg.eval_batch_size)
+        want = pipeline_results(cfg, state.model, batches, cfg.eval_ths)
+        if not same_results(run['results'], want):
+            raise AssertionError(f'{dataset}: results differ from '
+                                 'FusedInferencePipeline.run')
+        n_masks = [len(want[n]['conf']) for n in names]
+        check = 'results bit-equal to FusedInferencePipeline.run'
+    row = {'dataset': dataset, 'route': 'fused' if run['ev']._use_fused()
+           else 'non-fused (host oracle)', 'protocol': run['protocols'][0],
+           'result': vals, 'scenes': DATASET_SCENES,
+           'points_per_scene': [len(v) for _, h in batches
+                                for v in h['vox2point']],
+           'voxels_per_scene': [int(n) for _, h in batches
+                                for n in h['num_voxels']],
+           'eval_s': wall, 'eval_scenes_per_s': DATASET_SCENES / wall,
+           'scenes_per_s': DATASET_SCENES / run['predict_s'],
+           'predict_s': run['predict_s'], 'loader_alone_s': loader_s,
+           'protocol_s': run['protocol_s'], 'masks_per_scene': n_masks,
+           'launches': counts[0], 'card': smi}
+    if dataset == 's3dis':      # the host oracle, then the protocol proper
+        row['host_oracle_s'] = run['protocol_s'] - run['s3dis_protocol_s']
+        row['s3dis_protocol_s'] = run['s3dis_protocol_s']
+    log(f'[datasets] {dataset}: {check}; ' + json.dumps(row))
+    DatasetEvaluater.runs.clear()
+    return counts[0]
+
+
+def param_search_check(args, smi):
+    """--param_search on the ScanNet fixtures: the device route at every
+    grid point, its results equal to the pipeline's at those thresholds on
+    the same batches (batch size 1, as the search predicts)."""
+    cfg, state, run, best, counts, wall = cli_run(args)
+    grid = [tuple(float(t) for t in ths) for ths, _, _ in run['post']]
+    if len(grid) != 4 or not all(dev for _, dev, _ in run['post']):
+        raise AssertionError(f'param search: {len(grid)} grid points, device '
+                             f'route {[d for _, d, _ in run["post"]]}')
+    batches, loader_s = materialize(cfg, 1)
+    for ths, _, got in run['post']:
+        if not same_results(got, pipeline_results(cfg, state.model, batches,
+                                                  ths)):
+            raise AssertionError(f'param search at {ths}: results differ '
+                                 'from the pipeline\'s')
+    with open(os.path.join(run['ev'].results_path, 'param_search.txt')) as f:
+        lines = f.read().splitlines()
+    if len(lines) != 5 or not lines[-1].startswith('best'):
+        raise AssertionError(f'param_search.txt: {lines}')
+    row = {'grid_points': len(grid), 'best': [list(best[0]), best[1]],
+           'eval_s': wall, 'predict_s': run['predict_s'],
+           'post_s': run['post_s'], 'loader_alone_s': loader_s,
+           'launches': counts[0], 'card': smi}
+    log('[datasets] param_search: device route at every grid point, results '
+        'bit-equal to FusedInferencePipeline.run; ' + json.dumps(row))
+    DatasetEvaluater.runs.clear()
+    return counts[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1185,15 +1498,24 @@ def main():
     # ---- 11. the evaluation slice (python -m box2mask_torch.evaluate)
     eval_phase(smi)
 
+    # ---- 12. the datasets: ScanNet, ARKitScenes, S3DIS readers and evals
+    ds_launches = datasets_phase(smi)
+
     kernels = []
-    main_dtype = {'stem': 'float32'}
+    # bf16 rows: the ScanNet preset's activations (phase 3's launches); f32
+    # rows: the ARKitScenes and S3DIS presets' (no --bf16_acts), phase 12's
+    # launches; the stem takes f32 data on every preset
+    f32_launches = {m: sum(ds_launches[d].get(m, 0) for d in
+                           ('arkitscenes', 's3dis')) for m in FWD_MODES}
     for r in rows:
-        if not r['name'].endswith(main_dtype.get(r['mode'], 'bfloat16')):
-            continue
+        if r['mode'] == 'stem' or r['name'].endswith('bfloat16'):
+            n = launches[r['mode']]
+        else:
+            n = f32_launches[r['mode']]
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': SRC,
             'replaces': TPU_STEM if r['mode'] == 'stem' else TPU_KERNEL,
-            'launches': launches[r['mode']], 'max_abs_err': r['max_abs_err'],
+            'launches': n, 'max_abs_err': r['max_abs_err'],
             'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': None})
     for r in dw_rows:

@@ -369,7 +369,7 @@ def test_cli_eval_training_sweeps_checkpoints(run, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('extra,match', [
     ([], 'no CUDA device'),
-    (['--param_search'], 'A10'),
+    (['--spatial_shards', '2'], 'A13'),
     (['--produce_visualizations'], 'A20'),
     (['--predict_specific_scene', 'synth10000_00'], 'A20')])
 def test_cli_refuses(tmp_path, monkeypatch, extra, match):
@@ -387,16 +387,14 @@ def test_cli_refuses(tmp_path, monkeypatch, extra, match):
         cli.main(ARGS + extra)
 
 
-@pytest.mark.parametrize('extra,match', [
-    (['--dataset_name', 'arkitscenes'], 'A10'),
-    (['--dataset_name', 's3dis'], 'A10'),
-    (['--spatial_shards', '2'], 'A13')])
-def test_evaluater_refuses_paths_not_ported(run, tmp_path, extra, match):
-    pc, _ = configs(str(tmp_path), extra)
+@pytest.mark.parametrize('method', ['eval', 'submission_write_out',
+                                    'param_search'])
+def test_evaluater_refuses_paths_not_ported(run, tmp_path, method):
+    """Spatially sharded evaluation (ROADMAP A13) is refused by every
+    entry point that runs the forward."""
+    pc, _ = configs(str(tmp_path), ['--spatial_shards', '2'])
     ev = Evaluater(pc, device='cpu')
-    with pytest.raises(NotImplementedError, match=match):
-        ev.eval(run.pds)
-    with pytest.raises(NotImplementedError, match='A10'):
-        ev.param_search(run.pds)
+    with pytest.raises(NotImplementedError, match='A13'):
+        getattr(ev, method)(run.pds)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Evaluater(pc)

@@ -159,11 +159,14 @@ def test_loader_bit_equal():
 
 
 def test_other_datasets_raise():
+    """A dataset name no reader serves raises, naming the ones served; the
+    ARKitScenes box supervision needs the oriented boxes only its reader
+    gives (labels of synthetic scenes have none)."""
     pc, _ = configs(['--bb_supervision'])
     scene, labels = PSyn.make_scene(seed=1, **SCENE)
     ret = PV.voxelize_scene(scene, pc)
-    with pytest.raises(NotImplementedError, match='A15'):
+    with pytest.raises(KeyError, match='per_instance_bb_rotations'):
         PSup.build_supervision(ret, labels, scene, pc, 'arkitscenes')
-    pc.dataset_name = 's3dis'
-    with pytest.raises(NotImplementedError, match='A15'):
+    pc.dataset_name = 'matterport'
+    with pytest.raises(ValueError, match="'arkitscenes', 's3dis', 'scannet'"):
         PLd.get_dataset(pc, 'train')
