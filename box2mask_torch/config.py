@@ -5,8 +5,9 @@ use; same names, defaults, derived fields and checks).
 Reads the same ``configs/*.txt`` format (``key = value`` lines, bare flags,
 ``[a, b, c]`` lists, ``#`` comments) without depending on configargparse.
 Precedence: CLI > config file > default. Flags of the JAX package that the
-port does not read yet (multi-device, visualizations) are accepted, from a
-config file or the command line, and ignored.
+port does not read (the TPU's, the mesh's) are accepted, from a config file
+or the command line, and ignored; the multi-device and visualization flags
+are read, and the entry points refuse them naming the ROADMAP item.
 The conv-path flags are read, with the JAX package's names, defaults and
 choices:
 ``--key_conv {on,eval,off}`` (key-matching convs, or neighbor maps built on
@@ -122,7 +123,16 @@ def config_parser():
     add('--eval_every', type=int, default=12)
     add('--val_every', type=int, default=12)
     add('--ckpt_every', type=int, default=4)
+    add('--train_submission', default=False, action='store_true')
     add('--loose_model_loading', default=False, action='store_true')
+    # read nowhere, in the JAX package as here (its checkpoint converter
+    # drops the old head weights instead)
+    add('--load_unused_head', default=False, action='store_true')
+    add('--apple_warmstart', default=False, action='store_true')
+    add('--profile_dir', type=str, default=None,
+        help='Write a torch.profiler trace of train steps 10-14 to this dir.')
+    # the train CLI refuses these, naming the ROADMAP item (A11, A13)
+    add('--multigpu', default=False, action='store_true')
     add('--batch_size', type=int, default=4)
     add('--remat', default=False, action='store_true')
     add('--no_auto_remat', default=False, action='store_true')

@@ -13,8 +13,17 @@ box2mask_tpu/engine/checkpoint.py:27-121; same naming, selection and
 The payload is one pickle container, as in the JAX package, holding numpy
 copies of the port's state: `params` and `batch_stats` are the model's
 parameters and BN buffers by state_dict name, `opt_state` the optimizer's
-moments (engine/optim.py state_dict). A flax checkpoint is not read here
-(ROADMAP A16). Unpickling runs code: load only checkpoints this program wrote.
+moments (engine/optim.py state_dict), `step` the count of steps taken.
+
+A checkpoint the JAX package wrote is read too, so a run of it carries
+over: its payload is recognised by its bytes-valued `params`, each of
+params, batch_stats and opt_state one flax msgpack blob
+(engine/flax_msgpack.py). Params and batch stats map onto the model by
+flax path (convert.from_flax), the optax state onto the port's optimizer
+(convert.opt_state_from_flax), and `step` is the optax count (the JAX
+payload stores no step). The next checkpoint written is the port's own.
+Unpickling runs code: load only checkpoints of this program or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -26,6 +35,9 @@ import pickle
 import numpy as np
 import torch
 
+from box2mask_torch import convert
+from box2mask_torch.engine import flax_msgpack
+
 
 def convert_secs(sec):
     return int(sec // 3600), int((sec // 60) % 60), int(sec % 60)
@@ -36,7 +48,9 @@ def checkpoint_name(training_time):
     return f'checkpoint_{h}h:{m}m:{s}s_{training_time}.ckpt'
 
 
-def _split_state(model):
+def split_state(model):
+    """(params, batch stats) of the model as numpy arrays by state_dict
+    name."""
     names = {n for n, _ in model.named_parameters()}
     params, stats = {}, {}
     for k, v in model.state_dict().items():
@@ -46,7 +60,7 @@ def _split_state(model):
 
 def save_checkpoint(path_dir, state, training_time, epoch, iteration_num):
     os.makedirs(path_dir, exist_ok=True)
-    params, stats = _split_state(state.model)
+    params, stats = split_state(state.model)
     payload = {
         'training_time': float(training_time),
         'epoch': int(epoch),
@@ -92,16 +106,39 @@ def find_checkpoint(path_dir, checkpoint=None, closest_to=None):
     return ckpts[-1][1]
 
 
-def load_checkpoint(path, state, strict=True):
-    """Restore the model and optimizer state into `state` in place.
-    Returns (state, epoch, training_time, iteration_num, name). With
-    strict=False a part that does not fit is skipped with a warning (the
-    JAX package's loose loading)."""
+def read_payload(path):
+    """The checkpoint at `path` as the port's payload: a JAX package's
+    payload (bytes-valued `params`) is decoded and mapped here, its
+    optimizer state left as the flax state dict under `flax_opt_state`
+    (it needs the model's parameter names, see load_checkpoint)."""
     with open(path, 'rb') as f:
         payload = pickle.load(f)
-    sd = {k: torch.from_numpy(np.asarray(v)) for part in ('params',
-                                                          'batch_stats')
+    if isinstance(payload['params'], bytes):
+        params = flax_msgpack.restore(payload['params'])
+        stats = flax_msgpack.restore(payload['batch_stats'])
+        payload = dict(
+            payload,
+            params=convert.from_flax(params, {}),
+            batch_stats=convert.from_flax({}, stats),
+            flax_opt_state=flax_msgpack.restore(payload['opt_state']))
+    return payload
+
+
+def load_checkpoint(path, state, strict=True, keep=()):
+    """Restore the model and optimizer state into `state` in place, from a
+    checkpoint of the port or of the JAX package. Returns (state, epoch,
+    training_time, iteration_num, name). With strict=False a part that does
+    not fit is skipped with a warning (the JAX package's loose loading).
+    The parameters named in `keep`, and their optimizer moments, keep the
+    values they have in `state` (whatever shape the checkpoint gives
+    them)."""
+    payload = read_payload(path)
+    sd = {k: torch.as_tensor(v) for part in ('params', 'batch_stats')
           for k, v in payload[part].items()}
+    names = [n for n, _ in state.model.named_parameters()]
+    if keep:
+        cur = state.model.state_dict()
+        sd.update({k: cur[k] for k in keep})
     try:
         state.model.load_state_dict(sd, strict=True)
     except RuntimeError as e:
@@ -109,8 +146,18 @@ def load_checkpoint(path, state, strict=True):
             raise
         print(f'Warning: loose checkpoint loading skipped the model: {e}')
     try:
-        state.tx.load_state_dict(state.opt_state, payload['opt_state'])
-        state.step = int(payload['step'])
+        if 'flax_opt_state' in payload:
+            saved = convert.opt_state_from_flax(
+                payload['flax_opt_state'], names, state.tx.name)
+            step = saved['count']
+        else:
+            saved, step = payload['opt_state'], payload['step']
+        if keep:
+            saved = {s: (v if s == 'count' else [
+                state.opt_state[s][i] if n in keep else v[i]
+                for i, n in enumerate(names)]) for s, v in saved.items()}
+        state.tx.load_state_dict(state.opt_state, saved)
+        state.step = int(step)
     except (KeyError, ValueError, RuntimeError) as e:
         if strict:
             raise

@@ -4,12 +4,14 @@ build_model, :127 init_state, :134 make_train_step, :160 make_val_step,
 :169 make_forward, :179 head_weights).
 
 A train step is `train_step(state, batch, lr, bb_w, cs_w) -> (state, loss
-dict)`: the forward in train mode, the losses, the backward through the
-key_conv autograd Functions, and one optimizer update with the learning rate
-of this step. The model holds the parameters and the BN running statistics
-(the JAX package's params and batch_stats), so the state is updated in
-place. The three phases are also callable one by one (forward_losses,
-backward, apply_update), for timing them apart.
+dict)`: the forward in train mode, the losses, the backward, and one
+optimizer update with the learning rate of this step, on either conv path
+(key matching, or neighbor maps through the autograd Functions of
+sparse/pallas_conv.py or the ops' torch formulation). The model holds the
+parameters and the BN running statistics (the JAX package's params and
+batch_stats), so the state is updated in place. The three phases are also
+callable one by one (forward_losses, backward, apply_update), for timing
+them apart.
 """
 
 from __future__ import annotations
@@ -116,13 +118,11 @@ def init_state(cfg, model, tx, seed=0):
 
 
 def forward_losses(cfg, state, batch, bb_w, cs_w):
-    """Train-mode forward and the loss dict (BN running statistics move).
-    Training runs on key-matching batches only."""
-    if is_nmap_batch(batch):
-        raise NotImplementedError(
-            'training on the neighbor-map path (--key_conv off or eval in '
-            "mode 'train', --host_coordinate_maps, scenes past 1024 voxels "
-            'per axis) is not ported yet: ROADMAP A18')
+    """Train-mode forward and the loss dict (BN running statistics move),
+    on either conv path: key matching, or neighbor maps (built on the
+    device by ensure_maps, or carried by a host-maps batch), whose convs
+    differentiate through sparse/pallas_conv.py's autograd Functions or the
+    ops' XLA formulation."""
     model = state.model
     model.train()
     full = ensure_maps(batch)

@@ -4,9 +4,11 @@ Experiment dir with args.txt + config copy, auto-resume from the latest
 time-encoded checkpoint, cosine LR, epoch-head checkpoint / val loss blocks,
 the full val-set evaluation (mAP) at eval epochs, per-step timing and peak
 device memory (torch.cuda.max_memory_allocated in place of the JAX memory
-stats), val_min marker files. Scalars go to `<exp>/metrics.jsonl`, one JSON
-object per line (ScalarLog, in place of the JAX package's tensorboard
-writer).
+stats), val_min marker files, the --apple_warmstart warm start and, under
+--profile_dir, a torch.profiler Chrome trace of train steps 10-14. Scalars
+go to `<exp>/metrics.jsonl`, one JSON object per line (ScalarLog, in place
+of the JAX package's tensorboard writer). It resumes from the port's
+checkpoints and from the JAX package's (engine/checkpoint.py).
 
 Not in this slice: multi-device and spatially sharded training (ROADMAP
 A11, A13).
@@ -49,6 +51,38 @@ class ScalarLog:
         self.log(epoch=step, **{tag: value})
 
 
+def _start_profiler(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU]
+                   + ([ProfilerActivity.CUDA] if cuda else []))
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, out_dir):
+    """Stop `prof` and write its Chrome trace into `out_dir`."""
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f'train_steps_10-14_{int(time.time())}'
+                        '.pt.trace.json')
+    prof.export_chrome_trace(path)
+    print(f'Profiler trace written to {path}')
+
+
+def warmstart_fresh_params(model):
+    """Parameter names of the last Linear1x1_* (in the reference's sorted
+    order of names) of each semantics head the model has."""
+    names = [n for n, _ in model.named_parameters()]
+    keep = set()
+    for head in ('mlp_semantics', 'mlp_per_vox_semantics'):
+        layers = sorted({n.split('.')[1] for n in names
+                         if n.startswith(head + '.Linear1x1')})
+        if layers:
+            keep |= {n for n in names
+                     if n.startswith(f'{head}.{layers[-1]}.')}
+    return keep
+
+
 class Trainer:
     def __init__(self, cfg, train_dataset, val_dataset, num_classes=None,
                  device=None):
@@ -76,6 +110,7 @@ class Trainer:
         self.metrics = ScalarLog(os.path.join(cfg.exp_path, 'metrics.jsonl'))
 
         self.state = None
+        self._profiler = None
         self.training_time = 0.0
         self.iteration_num = 0
         self.start_epoch = 0
@@ -105,13 +140,30 @@ class Trainer:
         self._resume()
 
     def _resume(self):
-        path = ckpt.find_checkpoint(self.cfg.checkpoint_path)
+        """Resume from the experiment's latest checkpoint (the port's or the
+        JAX package's), at its epoch. Under --apple_warmstart (JAX
+        engine/train.py:178-192) start from its weights at epoch 0 instead,
+        with the semantic output layers at their fresh init: the last
+        Linear1x1_* of mlp_semantics and of mlp_per_vox_semantics, so that a
+        checkpoint of another class count (ScanNet's 20 into ARKitScenes'
+        28) carries over. Their optimizer moments start fresh too; the
+        reference keeps the checkpoint's, whose shapes then no longer match
+        and fail its first update (ROADMAP section C)."""
+        cfg = self.cfg
+        path = ckpt.find_checkpoint(cfg.checkpoint_path)
         if path is None:
-            print(f'No checkpoints found at {self.cfg.checkpoint_path}')
+            print(f'No checkpoints found at {cfg.checkpoint_path}')
             return
+        keep = warmstart_fresh_params(self.state.model) \
+            if cfg.apple_warmstart else ()
         (self.state, epoch, self.training_time, self.iteration_num,
          name) = ckpt.load_checkpoint(path, self.state,
-                                      strict=not self.cfg.loose_model_loading)
+                                      strict=not cfg.loose_model_loading,
+                                      keep=keep)
+        if cfg.apple_warmstart:
+            self.start_epoch = 0
+            print(f'Warm-started from {name} (semantic output layer re-init)')
+            return
         self.start_epoch = epoch
         print(f'Resumed from {name} (epoch {epoch})')
 
@@ -162,6 +214,8 @@ class Trainer:
                         epoch == self.start_epoch and cfg.skip_first_eval):
                     self._epoch_head(epoch)
 
+                if cfg.profile_dir and self.iteration_num == 10:
+                    self._profiler = _start_profiler(cuda)
                 t1 = time.time()
                 self.state, ld = self.train_step(self.state, batch, lr, bb_w,
                                                  cs_w)
@@ -169,6 +223,9 @@ class Trainer:
                 step_time = time.time() - t1
                 self.training_time += time.time() - t0
                 self.iteration_num += 1
+                if self._profiler is not None and self.iteration_num == 15:
+                    _stop_profiler(self._profiler, cfg.profile_dir)
+                    self._profiler = None
                 for k, v in ld.items():
                     epoch_sums[k] = epoch_sums.get(k, 0.0) + float(v)
                 epoch_n += 1

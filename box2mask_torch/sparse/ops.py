@@ -10,12 +10,13 @@ with the JAX package's dispatch over the operand a conv site is given,
   * a neighbor map (tensor; up_conv: a (parent, widx) pair): with
     `use_pallas` and a row count that is a multiple of pallas_conv.TILE
     (:316-319, :371-375) the CUDA kernels of sparse/pallas_conv.py, which
-    round x and w to bf16; otherwise the XLA formulation of :320-337 and
-    :376-377 (gather_conv_xla, up_pick_xla: operands in `compute_dtype`,
-    summed in f32 in offset order; the up conv's row pick unrounded). The
-    kernels take any row count; the rule is kept because it decides the
-    function (bf16 rounding or not), so the port computes the JAX package's
-    at every shape. The XLA formulations are plain PyTorch on any device
+    round x and w to bf16 and differentiate through its autograd
+    Functions (SparseConvFn, GatherRowsFn); otherwise the XLA formulation
+    of :320-337 and :376-377 (gather_conv_xla, up_pick_xla: operands in
+    `compute_dtype`, summed in f32 in offset order; the up conv's row pick
+    unrounded). The kernels take any row count; the rule is kept because
+    it decides the function (bf16 rounding or not), so the port computes
+    the JAX package's at every shape. The XLA formulations are plain PyTorch on any device
     and count their calls in XLA_CALLS;
 
 and linear :380, masked_moments :390, segment_* :409-441. Matmuls multiply
@@ -71,7 +72,8 @@ def gather_conv(x, nbr, w, compute_dtype=torch.bfloat16, use_pallas=False):
     (output dtype follows x, except the stem's f32; differentiable in x and
     w through the key_conv autograd Functions, train and eval alike) or a
     neighbor map nbr (Vout, K) int32 whose entries == x.shape[0] mark a
-    missing neighbor (f32 out)."""
+    missing neighbor (f32 out; differentiable through SparseConvFn or the
+    XLA formulation's torch ops)."""
     if isinstance(nbr, dict):
         ks, scale = nbr['ksize'], nbr['scale']
         if nbr['stride_child']:
@@ -82,7 +84,7 @@ def gather_conv(x, nbr, w, compute_dtype=torch.bfloat16, use_pallas=False):
         return KC.key_conv_train(x, nbr['keys_in'], nbr['keys_out'], w,
                                  kernel_size=ks, scale=scale, guard=True)
     if use_pallas and nbr.shape[0] % PC.TILE == 0:
-        return PC.sparse_conv(x, nbr, w)
+        return PC.SparseConvFn.apply(x, nbr, w)
     return gather_conv_xla(x, nbr, w, compute_dtype)
 
 
@@ -121,7 +123,7 @@ def up_conv(x_coarse, op, w, compute_dtype=torch.bfloat16, use_pallas=False):
     idx = torch.where(parent >= U, U * 8, parent * 8 + widx).to(torch.int32)
     if use_pallas and idx.shape[0] % PC.TILE == 0:
         # idx is monotone (children sorted within each parent block)
-        return PC.gather_rows(y, idx)
+        return PC.GatherRowsFn.apply(y, idx)
     return up_pick_xla(y, idx)
 
 

@@ -43,8 +43,28 @@ What bounds them on the H100, and what the design does about it
 
 A wrapper takes the plain twin only for CPU tensors; on a CUDA tensor it
 launches its kernel or raises. `LAUNCHES` counts kernel launches and
-`PLAIN_CALLS` plain-twin calls, per kernel, as plain integers. Forward only:
-the neighbor-map path does not train in the port yet (ROADMAP A18).
+`PLAIN_CALLS` plain-twin calls, per kernel, as plain integers.
+
+Training differentiates through two autograd Functions around the wrappers:
+  SparseConvFn   forward sparse_conv; backward sparse_conv_bwd, the JAX
+                 package's custom VJP (pallas_conv.py:123-141 _bwd) in torch
+                 ops and in its order of roundings: dw[k] = bf16(x_z[nbr[:,
+                 k]])^T bf16(g) and dx[nbr[:, k]] += bf16(g) bf16(w[k])^T,
+                 both summed in f32 (dx by index_add_ over Vin + 1 rows, the
+                 sentinel row dropped), dx cast to x's dtype and dw to w's.
+                 The JAX package computes this backward outside Pallas, so
+                 torch ops are its port. The dx of a same-level 3^3 conv is
+                 the same sum taken by the forward kernel: a sparse_conv of
+                 g over the same (symmetric) map with the mirrored,
+                 transposed weights (mirrored_dx). dx is skipped when x
+                 needs no grad (the stem's input is data).
+  GatherRowsFn   forward gather_rows; backward the gradient of the row pick
+                 it replaces (JAX ops.py:376-377, a take over y with a zero
+                 row appended): dy = index_add_ of g over idx into U*8 + 1
+                 rows, the zero row dropped. The bf16 rounding of y passes
+                 the gradient straight through. The JAX package gives
+                 gather_rows no VJP: jax.grad of its pallas_call raises
+                 (ROADMAP section C).
 """
 
 from __future__ import annotations
@@ -174,3 +194,82 @@ def gather_rows(x, idx):
                 idx.shape[0], x.shape[0], x.shape[1], _build.stream(x.device))
     LAUNCHES['gather_rows'] += 1
     return out
+
+
+# ----------------------------------------------------------------- autograd
+def sparse_conv_bwd(x, nbr, w, g, need_dx=True, need_dw=True):
+    """(dx, dw) of sparse_conv for the output gradient g (Vout, Cout): JAX
+    pallas_conv.py:123-141 _bwd in torch ops. dx is (Vin, Cin) in x's dtype
+    (None unless need_dx), dw (K, Cin, Cout) in w's (None unless need_dw)."""
+    vin, cin = x.shape
+    xz = torch.cat([x, x.new_zeros(1, cin)])
+    idx = torch.clamp(nbr.long(), max=vin)
+    gb = g.to(torch.bfloat16).float()
+    wb = w.to(torch.bfloat16).float()
+    dx = (torch.zeros(vin + 1, cin, dtype=torch.float32, device=x.device)
+          if need_dx else None)
+    dws = []
+    for k in range(nbr.shape[1]):
+        ik = idx[:, k]
+        if need_dw:
+            dws.append(xz[ik].to(torch.bfloat16).float().T @ gb)
+        if need_dx:
+            dx.index_add_(0, ik, gb @ wb[k].T)
+    return (dx[:vin].to(x.dtype) if need_dx else None,
+            torch.stack(dws).to(w.dtype) if need_dw else None)
+
+
+def mirrored_dx(nbr, x, w):
+    """True for a same-level 3^3 conv (27 offsets, as many output rows as
+    input rows) whose dx the forward kernel computes: its map is
+    symmetric, so dx[u] = sum_k bf16(g[nbr[u, k]]) @ bf16(w[26 - k])^T, a
+    sparse_conv of g over the same map with the mirrored, transposed
+    weights (the offsets are x-major and centred: offset 26 - k is -offset
+    k). The kernel needs Cin, its output width there, a multiple of 16."""
+    return (nbr.shape[1] == 27 and nbr.shape[0] == x.shape[0]
+            and w.shape[1] % 16 == 0)
+
+
+class SparseConvFn(torch.autograd.Function):
+    """sparse_conv with the JAX package's backward (sparse_conv_bwd); the dx
+    of a same-level 3^3 conv is one more sparse_conv launch over the same
+    map (mirrored_dx), as the key path computes its dx."""
+
+    @staticmethod
+    def forward(ctx, x, nbr, w):
+        ctx.save_for_backward(x, nbr, w)
+        return sparse_conv(x, nbr, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, nbr, w = ctx.saved_tensors
+        need_dx, need_dw = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
+        if need_dx and mirrored_dx(nbr, x, w):
+            dx = sparse_conv(g, nbr, w.flip(0).transpose(1, 2)).to(x.dtype)
+            _, dw = sparse_conv_bwd(x, nbr, w, g, False, need_dw)
+            return dx, None, dw
+        dx, dw = sparse_conv_bwd(x, nbr, w, g, need_dx, need_dw)
+        return dx, None, dw
+
+
+def gather_rows_bwd(idx, g, n_rows):
+    """dy (n_rows, C) of the row pick out[i] = y_z[idx[i]]: g summed into
+    the rows it was picked from, the zero row n_rows dropped."""
+    dy = g.new_zeros(n_rows + 1, g.shape[1])
+    dy.index_add_(0, torch.clamp(idx.long(), max=n_rows), g)
+    return dy[:n_rows]
+
+
+class GatherRowsFn(torch.autograd.Function):
+    """gather_rows with the gradient of the unrounded row pick."""
+
+    @staticmethod
+    def forward(ctx, y, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = y.shape[0]
+        return gather_rows(y, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return gather_rows_bwd(idx, g.float(), ctx.n_rows), None

@@ -71,11 +71,35 @@ Phases, in order; any failure exits non-zero:
      results bit-equal to the pipeline's at its thresholds; one
      `[datasets]` line per run (scenes/s, the loader's seconds alone, the
      protocol's seconds, masks per scene, launches).
+ 13. training on the neighbor-map path: phase 6's batches and initial
+     weights under --key_conv off --pallas_conv on (the preset as it ships
+     otherwise), 3 train steps: every loss finite, 120 sparse_conv (the
+     forward's 64, the 56 3^3 convs' dx) and 7 gather_rows launches per
+     step, no twin, no key_conv, no call of the ops' XLA formulation; the
+     step split into forward, backward and optimizer, peak memory, the
+     backward under torch.profiler; one step's grads against the twins'
+     backward on the same forward graph and the twins' whole step (phase
+     7's bounds); the level-0 3^3 conv's forward, dx and dw and the up
+     1->0 row pick at the training shapes (`[nmap_train_conv]`); one more
+     step on a host-maps batch holding a 24 m room (past 1024 voxels of
+     2 cm on an axis);
+ 14. training as users start it, in a temporary experiment root: `python
+     -m box2mask_torch.train`'s main() for 2 epochs of the synthetic preset
+     (with normals), every key-path kernel launched (dw and stem dw
+     included), no twin; a resume at the checkpoint's epoch; a
+     --apple_warmstart ARKitScenes run (28 classes, phase 12's fixture
+     generator, its Training and Validation splits) from that checkpoint:
+     the semantic output layer at its fresh init, every other tensor
+     bit-equal to the checkpoint, one finite step; Model.get_prediction bit-equal to
+     engine/state.forward; `python -m box2mask_torch.quality_gate` at
+     GATE_ARGS, which must pass; one `[train_cli]` line of their times.
 Prints the card's name and power limit, one JSON line of per-kernel numbers,
 and last `{"ok": true, "device": {...}}`.
 """
 
+import contextlib
 import copy
+import io
 import json
 import os
 import re
@@ -85,19 +109,23 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from box2mask_torch import evaluate as eval_cli
+from box2mask_torch import quality_gate, train as train_cli
 from box2mask_torch.config import get_config
 from box2mask_torch.convert import kaiming_init_
-from box2mask_torch.datasets import (batching, fixtures, loader, synthetic,
-                                     tables)
+from box2mask_torch.datasets import (batching, fixtures, loader,
+                                     supervision, synthetic, tables)
 from box2mask_torch.datasets.voxelize import voxelize_scene
 from box2mask_torch.engine import checkpoint, state as S
 from box2mask_torch.engine.evaluate import Evaluater
 from box2mask_torch.engine.infer import FusedInferencePipeline, upload
+from box2mask_torch.engine.train import Trainer, warmstart_fresh_params
+from box2mask_torch.model import Model
 from box2mask_torch.postprocess import device_post as DP
 from box2mask_torch.postprocess.device_post import (fused_postproc,
                                                     stacked_masks_to_results)
@@ -506,14 +534,7 @@ def dw_split(fn, name, reps=5):
 def train_batches(smi):
     """2 unique batches of 8 labelled ScanNet-scale synthetic scenes from
     the port's loader, under the preset as it ships."""
-    cfg = get_config([
-        '--config', os.path.join(ROOT, 'configs', 'scannet.txt'),
-        '--vox_bucket', '131072', '--seg_bucket', '2048',
-        '--dataset_name', 'synthetic', '--dataset_size', '16',
-        '--synthetic_instances', '18',
-        '--synthetic_points_per_instance', '4000',
-        '--synthetic_floor_points', '45000', '--synthetic_wall_points',
-        '35000', '--fixed_seed', '7', '--num_workers', '8'])
+    cfg = get_config(TRAIN_ARGS)
     assert (cfg.batch_size == 8 and cfg.bf16_acts and cfg.augmentation
             and cfg.bb_supervision and cfg.layers == 2 and not cfg.remat)
     t0 = time.perf_counter()
@@ -526,6 +547,15 @@ def train_batches(smi):
     if len(batches) != 2:
         raise AssertionError(f'{len(batches)} train batches')
     return cfg, batches
+
+
+TRAIN_ARGS = ['--config', os.path.join(ROOT, 'configs', 'scannet.txt'),
+              '--vox_bucket', '131072', '--seg_bucket', '2048',
+              '--dataset_name', 'synthetic', '--dataset_size', '16',
+              '--synthetic_instances', '18',
+              '--synthetic_points_per_instance', '4000',
+              '--synthetic_floor_points', '45000', '--synthetic_wall_points',
+              '35000', '--fixed_seed', '7', '--num_workers', '8']
 
 
 def train_phase(cfg, batches, device, smi):
@@ -595,20 +625,37 @@ def grad_distance(a, b):
     return (num / den) ** 0.5, dot / (na * den) ** 0.5, per
 
 
+def key_launch_check(name, out, ref, a, kw):
+    """A key_conv launch against its twin on the same inputs: (worst
+    relative distance, within tolerance)."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    scale = r.abs().max().clamp(min=1e-30).item()
+    rel = err.max().item() / scale
+    ok = rel <= F32_TOL
+    if name.endswith('_dw'):                 # sums of up to ~1M rows
+        x, g, *rest = a
+        if name == 'key_conv_stem_dw':
+            rest, kw = [rest[0], rest[0].reshape(-1)], {'kernel_size': 5}
+        e, tol, d_a, d_b, ok = dw_check(x, g, *rest, out, ref, **kw)
+        rel = max(d_a, d_b)
+    elif out.dtype == torch.bfloat16:        # one rounding step
+        ulp = torch.maximum(bf16_ulp(o), bf16_ulp(r))
+        ok = bool((err <= ulp + F32_TOL * scale).all())
+    return rel, ok
+
+
+def nmap_launch_check(name, out, ref, a, kw):
+    """A neighbor-map launch against its twin on the same inputs:
+    sparse_conv within F32_TOL of max |twin|, gather_rows bit-equal."""
+    rel = ((out - ref).abs().max() / ref.abs().max().clamp(
+        min=1e-30)).item()
+    ok = torch.equal(out, ref) if name == 'gather_rows' else rel <= F32_TOL
+    return rel, ok and bool(torch.isfinite(out).all())
+
+
 def grads_phase(cfg, state, batch):
-    """One step's grads with the kernels, from the same parameters (BN
-    normalizes with batch moments, so the running statistics moved by one
-    pass do not enter the next), against (a) the twins' backward on the
-    kernels' own forward graph (the preset runs without remat, so that
-    backward recomputes no forward) and (b) the twins' whole step. In the
-    kernels' pass every launch is also held to its twin on the same
-    inputs."""
-    bb_w, cs_w = S.head_weights(cfg, 200)
-    names = [n for n, _ in state.model.named_parameters()]
-    params = [p for _, p in state.model.named_parameters()]
-    kern = {'key_conv': KC.key_conv, 'key_conv_stem': KC.key_conv_stem,
-            'key_conv_dw': KC.key_conv_dw,
-            'key_conv_stem_dw': KC.key_conv_stem_dw}
+    """Phase 7 on the key path: the four key_conv kernels of the step."""
     twin = {'key_conv': KC.key_conv_plain,
             'key_conv_stem': lambda x, kin, w: KC.key_conv_plain(
                 x, kin, kin.reshape(-1), w, kernel_size=5,
@@ -616,26 +663,28 @@ def grads_phase(cfg, state, batch):
             'key_conv_dw': KC.key_conv_dw_plain,
             'key_conv_stem_dw': lambda x, g, kin: KC.key_conv_dw_plain(
                 x, g, kin, kin.reshape(-1), kernel_size=5)}
+    step_grads_check('grads', cfg, state, batch, KC,
+                     {k: getattr(KC, k) for k in twin}, twin,
+                     key_launch_check)
+
+
+def step_grads_check(tag, cfg, state, batch, module, kern, twin, check):
+    """One step's grads with the kernels (`kern`: the wrappers of `module`
+    by name), from the same parameters (BN normalizes with batch moments,
+    so the running statistics moved by one pass do not enter the next),
+    against (a) the twins' backward on the kernels' own forward graph (the
+    presets run without remat, so that backward recomputes no forward) and
+    (b) the twins' whole step. In the kernels' pass every launch is also
+    held to its twin on the same inputs (`check`)."""
+    bb_w, cs_w = S.head_weights(cfg, 200)
+    names = [n for n, _ in state.model.named_parameters()]
+    params = [p for _, p in state.model.named_parameters()]
     worst = {}
 
     def checked(name):
         def fn(*a, **kw):
             out, ref = kern[name](*a, **kw), twin[name](*a, **kw)
-            o, r = out.float(), ref.float()
-            err = (o - r).abs()
-            scale = r.abs().max().clamp(min=1e-30).item()
-            rel = err.max().item() / scale
-            ok = rel <= F32_TOL
-            if name.endswith('_dw'):             # sums of up to ~1M rows
-                x, g, *rest = a
-                if name == 'key_conv_stem_dw':
-                    rest, kw = [rest[0], rest[0].reshape(-1)], {
-                        'kernel_size': 5}
-                e, tol, d_a, d_b, ok = dw_check(x, g, *rest, out, ref, **kw)
-                rel = max(d_a, d_b)
-            elif out.dtype == torch.bfloat16:    # one rounding step
-                ulp = torch.maximum(bf16_ulp(o), bf16_ulp(r))
-                ok = bool((err <= ulp + F32_TOL * scale).all())
+            rel, ok = check(name, out, ref, a, kw)
             key = f'{name}_{str(out.dtype)[6:]}'
             n, w, good = worst.get(key, (0, 0.0, True))
             worst[key] = (n + 1, max(w, rel), good and ok)
@@ -643,14 +692,14 @@ def grads_phase(cfg, state, batch):
         return fn
 
     def patched(fns, fn):
-        saved = {k: getattr(KC, k) for k in fns}
+        saved = {k: getattr(module, k) for k in fns}
         for k, f in fns.items():
-            setattr(KC, k, f)
+            setattr(module, k, f)
         try:
             return fn()
         finally:
             for k, f in saved.items():
-                setattr(KC, k, f)
+                setattr(module, k, f)
 
     def forward():
         return S.forward_losses(cfg, state, batch, bb_w, cs_w)
@@ -660,27 +709,28 @@ def grads_phase(cfg, state, batch):
                                  retain_graph=retain)
         return dict(zip(names, (g.detach() for g in gs)))
 
-    def report(tag, a, b, l2_tol, cos_tol):
+    def report(what, a, b, l2_tol, cos_tol):
         l2, cos, per = grad_distance(a, b)
-        log(f'[grads] {len(b)} parameter tensors, kernels vs {tag}: |diff| '
+        log(f'[{tag}] {len(b)} parameter tensors, kernels vs {what}: |diff| '
             f'/ |twin| (L2 over all) {l2:.3e} (bound {l2_tol:g}), cosine '
             f'{cos:.6f} (bound {cos_tol:g}); per tensor max |diff| / max '
             f'|twin|: median {statistics.median(per.values()):.3e}, worst '
             f'five {sorted(per.items(), key=lambda kv: -kv[1])[:5]}')
         if not (l2 <= l2_tol and cos >= cos_tol):
-            raise AssertionError(f'grads: kernels vs {tag} L2 {l2}, cos {cos}')
+            raise AssertionError(f'{tag}: kernels vs {what} L2 {l2}, cos '
+                                 f'{cos}')
 
     checked_fns = {k: checked(k) for k in kern}
     ld_k = patched(checked_fns, forward)
     gk = patched(checked_fns, lambda: grads(ld_k, retain=True))
-    log('[grads] every launch of one step vs its twin on the same inputs '
+    log(f'[{tag}] every launch of one step vs its twin on the same inputs '
         '(calls, worst max |diff| / max |twin| -- for dw the larger '
         'distance of kernel and twin from the f64 sum / max |x|^T|g| --, '
         'within tolerance): ' + json.dumps(worst))
     if not all(good for _, _, good in worst.values()):
         raise AssertionError(f'a launch differs from its twin: {worst}')
     if not all(torch.isfinite(v).all().item() for v in gk.values()):
-        raise AssertionError('grads: the kernels\' step is not finite')
+        raise AssertionError(f'{tag}: the kernels\' step is not finite')
     gb = patched(twin, lambda: grads(ld_k))                     # (a)
     loss_k = ld_k['optimization_loss'].item()
     del ld_k
@@ -691,7 +741,7 @@ def grads_phase(cfg, state, batch):
     gt, loss_t = patched(twin, lambda: grads(ld_t)), ld_t[
         'optimization_loss'].item()
     del ld_t
-    log(f'[grads] optimization_loss kernels {loss_k:.6f}, twins '
+    log(f'[{tag}] optimization_loss kernels {loss_k:.6f}, twins '
         f'{loss_t:.6f}: relative {abs(loss_k - loss_t) / abs(loss_t):.3e} '
         f'(bound {LOSS_TOL:g})')
     if not abs(loss_k - loss_t) <= LOSS_TOL * abs(loss_t):
@@ -1388,6 +1438,394 @@ def param_search_check(args, smi):
     return counts[0]
 
 
+# phase 13: training on the neighbor-map path (--key_conv off --pallas_conv
+# on), the preset as it ships, on phase 6's batches and initial weights.
+NMAP_TRAIN_STEPS = 3
+# per train step at layers 2: the forward's 1 stem + 7 down + 56 3^3 convs
+# and 7 up picks, and the backward's dx of each 3^3 conv (one sparse_conv
+# over the same map with mirrored weights, pallas_conv.mirrored_dx)
+NMAP_STEP_LAUNCHES = {'sparse_conv': 64 + 56, 'gather_rows': 7}
+
+
+def nmap_step_counts():
+    """(pallas_conv launches, every twin call and XLA-formulation call,
+    key_conv launches): the neighbor-map train step's counts."""
+    return (dict(PC.LAUNCHES), sum(PC.PLAIN_CALLS.values())
+            + sum(KC.PLAIN_CALLS.values()) + sum(ops.XLA_CALLS.values()),
+            sum(KC.LAUNCHES.values()))
+
+
+def reset_all_counts():
+    KC.reset_counts()
+    PC.reset_counts()
+    ops.reset_counts()
+
+
+def nmap_train_phase(tbatches, device, smi):
+    """Phase 13: NMAP_TRAIN_STEPS train steps on the neighbor maps of phase
+    6's batches from phase 6's initial weights (seed 1), every loss finite
+    and NMAP_STEP_LAUNCHES per step, no twin, no XLA formulation, no key
+    conv; where the step's time goes; one step's grads against the twins;
+    the level-0 3^3 conv's forward and backward at the training shapes; one
+    more step on a host-maps batch holding a 24 m room. Returns the kernel
+    rows at the training shapes and the launches of the run."""
+    cfg = get_config(TRAIN_ARGS + NMAP_FLAGS)
+    assert (cfg.batch_size == 8 and cfg.bf16_acts and cfg.key_conv == 'off'
+            and cfg.pallas_conv == 'on' and not cfg.remat)
+    n_classes = len(tables.get_tables('scannet')[0])
+    state = S.init_state(cfg, S.build_model(cfg, n_classes),
+                         S.make_optimizer(cfg), seed=1)
+    marker = {batching.DEVICE_NMAPS: np.ones((), bool)}
+    dev = [upload(dict(d, **marker), device) for d, _ in tbatches]
+    bb_w, cs_w = S.head_weights(cfg, 200)
+    S.train_step(cfg, state, dev[0], cfg.lr, bb_w, cs_w)        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_all_counts()
+    lrs = [cfg.lr * (1 - 0.1 * i) for i in range(NMAP_TRAIN_STEPS)]
+    losses = []
+    t0 = time.perf_counter()
+    for i, lr in enumerate(lrs):
+        _, ld = S.train_step(cfg, state, dev[i % len(dev)], lr, bb_w, cs_w)
+        losses.append(ld)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, others, kc = nmap_step_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    opt = [float(ld['optimization_loss']) for ld in losses]
+    log(f'[nmap_train] optimization_loss per step {opt} (lr {lrs}); '
+        f'launches over {NMAP_TRAIN_STEPS} steps {launches}, twin and XLA '
+        f'calls {others}, key_conv launches {kc}')
+    if not all(torch.isfinite(v).all().item() for ld in losses
+               for v in ld.values()):
+        raise AssertionError('non-finite losses in the neighbor-map steps')
+    want = {k: v * NMAP_TRAIN_STEPS for k, v in NMAP_STEP_LAUNCHES.items()}
+    if launches != want or others or kc:
+        raise AssertionError(f'neighbor-map steps launched {launches} (want '
+                             f'{want}), twins / XLA {others}, key_conv {kc}')
+
+    split = []
+    for b in dev:                       # each phase run alone, synchronized
+        ld, t_fwd = sync_ms(lambda: S.forward_losses(cfg, state, b, bb_w,
+                                                     cs_w))
+        _, t_bwd = sync_ms(lambda: S.backward(ld))
+        _, t_opt = sync_ms(lambda: S.apply_update(state, lrs[-1]))
+        split.append({'forward_ms': t_fwd, 'backward_ms': t_bwd,
+                      'optimizer_ms': t_opt})
+    log('[nmap_train] ' + json.dumps({
+        'card': smi, 'steps': NMAP_TRAIN_STEPS, 'batch_size': cfg.batch_size,
+        'wall_s': wall, 'ms_per_step': wall / NMAP_TRAIN_STEPS * 1e3,
+        'steps_per_s': NMAP_TRAIN_STEPS / wall,
+        'scenes_per_s': NMAP_TRAIN_STEPS * cfg.batch_size / wall,
+        'split_per_batch': split, 'peak_max_memory_allocated_GB': peak / 1e9,
+        'launches': launches}))
+    ld = S.forward_losses(cfg, state, dev[0], bb_w, cs_w)
+    profile_window('nmap_train_backward_profile', lambda: S.backward(ld),
+                   smi)
+    del ld
+    for p in state.params:
+        p.grad = None
+
+    twin = {'sparse_conv': PC.sparse_conv_plain,
+            'gather_rows': PC.gather_rows_plain}
+    step_grads_check('nmap_grads', cfg, state, dev[1], PC,
+                     {k: getattr(PC, k) for k in twin}, twin,
+                     nmap_launch_check)
+    rows = nmap_train_conv(S.ensure_maps(dev[0]), smi)
+    del dev
+    nmap_host_maps_step(cfg, state, device, smi)
+    del state
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def nmap_train_conv(maps, smi):
+    """The level-0 3^3 conv (96 -> 96) and the up 1 -> 0 row pick at the
+    training shapes (8 scenes): the forward, the backward's dx (the same
+    kernel over the mirrored weights) and dw (torch ops), each kernel
+    against its twin; the dx by index_add_ (sparse_conv_bwd) against the
+    kernel's. Returns kernel rows."""
+    g = torch.Generator().manual_seed(5)
+    nbr = maps['nmap3_0']
+    valid = maps['valid0']
+    vin = nbr.shape[0]
+    x = torch.randn(vin, 96, generator=g).to('cuda')
+    x[~valid] = 0
+    x = x.to(torch.bfloat16)
+    w = (torch.randn(27, 96, 96, generator=g) * (2.0 / (27 * 96)) ** 0.5
+         ).to('cuda')
+    gy = torch.randn(vin, 96, generator=g).to('cuda')
+    gy[~valid] = 0
+    wm = w.flip(0).transpose(1, 2)
+    n_hits = int((nbr < vin).sum())
+    n_in = int(maps['num0'])
+    rows = []
+    for name, a, wk in (('nmap_train_same3_l0_96', x, w),
+                        ('nmap_train_dx_same3_l0_96', gy, wm)):
+        kern = lambda: PC.sparse_conv(a, nbr, wk)               # noqa
+        twin = lambda: PC.sparse_conv_plain(a, nbr, wk)         # noqa
+        out, ref = kern(), twin()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if err > F32_TOL * scale or not torch.isfinite(out).all():
+            raise AssertionError(f'{name}: max err {err} (tol {F32_TOL:g} '
+                                 f'* {scale})')
+        nbytes = (n_in * 96 * a.element_size() + nbr.numel() * 4
+                  + wk.numel() * 2 + out.numel() * 4)
+        bound_ms, bound_by = bound(nbytes, 2.0 * n_hits * 96 * 96)
+        rows.append(dict(name=name, kernel='sparse_conv', max_abs_err=err,
+                         ms=time_ms(kern), plain_ms=time_ms(twin),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
+    dx_k = PC.sparse_conv(gy, nbr, wm)
+    dx_t, _ = PC.sparse_conv_bwd(x.float(), nbr, w, gy, True, False)
+    dx_err = (dx_k - dx_t).abs().max().item() / dx_t.abs().max().item()
+    if dx_err > F32_TOL:
+        raise AssertionError(f'dx by the kernel vs by index_add_: {dx_err}')
+    dw_ms = time_ms(lambda: PC.sparse_conv_bwd(x, nbr, w, gy, False, True))
+    dx_index_add_ms = time_ms(lambda: PC.sparse_conv_bwd(x, nbr, w, gy, True,
+                                                         False))
+    log('[nmap_train_conv] ' + json.dumps({
+        'card': smi, 'rows': vin, 'valid_rows': n_in, 'hits': n_hits,
+        'forward_ms': rows[0]['ms'], 'dx_kernel_ms': rows[1]['ms'],
+        'dw_torch_ops_ms': dw_ms, 'dx_index_add_ms': dx_index_add_ms,
+        'backward_ms': rows[1]['ms'] + dw_ms,
+        'dx_kernel_vs_index_add_rel': dx_err}))
+
+    U = maps['nmap3_1'].shape[0]
+    parent, widx = maps['up_parent0'], maps['up_widx0']
+    idx = torch.where(parent >= U, U * 8, parent * 8 + widx).to(torch.int32)
+    y = torch.randn(U * 8, 96, generator=g).to('cuda')
+    kern = lambda: PC.gather_rows(y, idx)                       # noqa
+    twin = lambda: PC.gather_rows_plain(y, idx)                 # noqa
+    if not torch.equal(kern(), twin()):
+        raise AssertionError('nmap_train_gather_up1_0_96: kernel and twin '
+                             'differ')
+    yz, idx64 = torch.cat([y, y.new_zeros(1, 96)]), idx.long()
+    n_valid = int((idx < U * 8).sum())
+    bound_ms, bound_by = bound(idx.numel() * 4 + 2 * n_valid * 96 * 4, 0.0)
+    rows.append(dict(name='nmap_train_gather_up1_0_96', kernel='gather_rows',
+                     max_abs_err=0.0, ms=time_ms(kern), plain_ms=time_ms(twin),
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=time_ms(lambda: torch.index_select(
+                         yz, 0, idx64))))
+    for r in rows:
+        log(f'[kernel] {r["name"]}: max_abs_err {r["max_abs_err"]:.3e} '
+            f'kernel {r["ms"]:.3f} ms, plain twin {r["plain_ms"]:.3f} ms, '
+            f'bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}), library '
+            f'{r["library_ms"]}')
+    return rows
+
+
+def nmap_host_maps_step(cfg, state, device, smi):
+    """One train step on a batch of two ScanNet-scale scenes, one of them a
+    24 x 5 m room (1200 voxels of 2 cm along x, past the 1024 of the key
+    packing): the batch takes host maps and trains."""
+    rets = []
+    t0 = time.perf_counter()
+    for i, room in enumerate(((6.0, 5.0, 2.6), (24.0, 5.0, 2.6))):
+        scene, labels = synthetic.make_scene(
+            seed=3000 + i, num_instances=18, points_per_instance=4000,
+            floor_points=45000, wall_points=35000, segs_per_instance=6,
+            room_size=room)
+        ret = voxelize_scene(scene, cfg)
+        ret['labels'] = labels
+        supervision.build_supervision(ret, labels, scene, cfg, 'scannet')
+        rets.append(ret)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        dev_np, host = batching.build_batch(
+            rets, cfg, tables.SCANNET_SEMANTIC_ID2IDX, mode='train')
+    prep_s = time.perf_counter() - t0
+    extent = max(int(r['vox_coords'].max()) for r in rets)
+    if 'keys0_b' in dev_np or extent < 1024 or not any(
+            '1024' in str(w.message) for w in caught):
+        raise AssertionError(f'the 24 m room did not take host maps (max '
+                             f'coord {extent})')
+    batch = upload(dev_np, device)
+    bb_w, cs_w = S.head_weights(cfg, 200)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    (_, ld), step_ms = sync_ms(lambda: S.train_step(cfg, state, batch,
+                                                    cfg.lr, bb_w, cs_w))
+    launches, others, kc = nmap_step_counts()
+    loss = float(ld['optimization_loss'])
+    log(f'[nmap_train] host maps: 2 scenes, max voxel coord {extent}, '
+        f'voxels {host["num_voxels"]}, batch built in {prep_s:.1f} s; one '
+        f'step {step_ms:.1f} ms, optimization_loss {loss:.4f}, launches '
+        f'{launches}, twin and XLA calls {others}, key_conv launches {kc} '
+        f'on {smi}')
+    if (not all(torch.isfinite(v).all().item() for v in ld.values())
+            or launches != NMAP_STEP_LAUNCHES or others or kc):
+        raise AssertionError('the host-maps step failed')
+
+
+# phase 14: training as users start it, in a temporary experiment root
+CLI_ARGS = ['--config', os.path.join(ROOT, 'configs', 'synthetic.txt'),
+            '--use_normals_input', '--fixed_seed', '5', '--ckpt_every', '1',
+            '--num_workers', '8']
+# the quality gate at a recipe that overfits within the phase's budget
+# (a third of the steps of the gate's default, 75 epochs x 32 copies)
+GATE_ARGS = ['--epochs', '40', '--dataset_size', '16']
+
+
+def quiet(fn, keep=('Resumed', 'Warm-started', 'Saved checkpoint',
+                    'No checkpoints', '{')):
+    """fn() with its standard output captured; echoes the lines that start
+    with one of `keep`. Returns (fn's return, the output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith(keep):
+            log('  ' + line)
+    return out, text
+
+
+def cli_phase(device, smi):
+    """Phase 14: `python -m box2mask_torch.train`'s main() for 2 epochs of
+    the synthetic preset (with normals, so that its weights fit the
+    ARKitScenes preset), a resume at the checkpoint's epoch, a warm start
+    of ARKitScenes (28 classes, phase 12's fixture generator, both
+    splits) from that checkpoint, Model.get_prediction against
+    engine/state.forward, and the quality gate."""
+    root = tempfile.mkdtemp(prefix='b2m_train_cli_')
+    saved_root = os.environ.get('BOX2MASK_EXP_ROOT')
+    os.environ['BOX2MASK_EXP_ROOT'] = os.path.join(root, 'exp')
+    saved_resume = Trainer._resume
+    row = {'card': smi}
+    try:
+        torch.cuda.synchronize()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        tr, _ = quiet(lambda: train_cli.main(CLI_ARGS + ['--num_epochs', '2']))
+        torch.cuda.synchronize()
+        row['train_2_epochs_s'] = time.perf_counter() - t0
+        counts = (dict(KC.LAUNCHES), sum(KC.PLAIN_CALLS.values()),
+                  sum(PC.LAUNCHES.values()) + sum(PC.PLAIN_CALLS.values())
+                  + sum(ops.XLA_CALLS.values()))
+        log(f'[train_cli] 2 epochs, {tr.iteration_num} steps: key_conv '
+            f'launches {counts[0]}, twins / neighbor-map convs {counts[1:]}')
+        if min(counts[0].values()) == 0 or counts[1] or counts[2]:
+            raise AssertionError('the train CLI did not run every key-path '
+                                 'kernel, or ran a twin')
+        with open(os.path.join(tr.cfg.exp_path, 'metrics.jsonl')) as f:
+            losses = [json.loads(line)['loss'] for line in f
+                      if '"loss"' in line]
+        ckpts = checkpoint.list_checkpoints(tr.cfg.checkpoint_path)
+        if (len(losses) != tr.iteration_num or not np.isfinite(losses).all()
+                or len(ckpts) != 1
+                or checkpoint.read_payload(ckpts[0][1])['epoch'] != 1):
+            raise AssertionError(f'train CLI: losses {losses[:3]}..., '
+                                 f'checkpoints {ckpts}')
+        row['losses_first_last'] = [losses[0], losses[-1]]
+        ckpt_path = ckpts[0][1]
+
+        t0 = time.perf_counter()
+        tr2, text = quiet(lambda: train_cli.main(CLI_ARGS
+                                                 + ['--num_epochs', '2']))
+        row['resume_1_epoch_s'] = time.perf_counter() - t0
+        if tr2.start_epoch != 1 or '(epoch 1)' not in text:
+            raise AssertionError(f'resume at epoch {tr2.start_epoch}')
+
+        # the warm start, recorded right after it
+        snap = {}
+
+        def recording(self):
+            saved_resume(self)
+            snap['sd'] = {k: v.clone() for k, v in
+                          self.state.model.state_dict().items()}
+        Trainer._resume = recording
+        ark_dir = os.path.join(root, 'arkitscenes')
+        for split, first in (('Training', 4100), ('Validation', 4200)):
+            fixtures.write_arkitscenes(
+                ark_dir, [f'{first}{i:04d}' for i in range(DATASET_SCENES)],
+                split, n_vertices=DATASET_FIXTURES['arkitscenes'], seed=22)
+        ark_args = ['--config', os.path.join(ROOT, 'configs',
+                                             'arkitscenes.txt'),
+                    '--data_dir', ark_dir, '--apple_warmstart',
+                    '--num_epochs', '1', '--fixed_seed', '12',
+                    '--num_workers', '8']
+        acfg = get_config(ark_args)
+        os.makedirs(acfg.checkpoint_path)
+        shutil.copy(ckpt_path, acfg.checkpoint_path)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        ta, text = quiet(lambda: train_cli.main(ark_args))
+        torch.cuda.synchronize()
+        row['warmstart_s'] = time.perf_counter() - t0
+        keep = warmstart_fresh_params(ta.state.model)
+        payload = checkpoint.read_payload(ckpt_path)
+        saved = dict(payload['params'], **payload['batch_stats'])
+        fresh = S.init_state(acfg, S.build_model(acfg, 28),
+                             S.make_optimizer(acfg),
+                             seed=acfg.fixed_seed).model.state_dict()
+        bad = [k for k, v in snap['sd'].items()
+               if not torch.equal(v.cpu(), fresh[k].cpu() if k in keep
+                                  else torch.as_tensor(saved[k]))]
+        head = 'mlp_semantics.Linear1x1_2.kernel'
+        shapes = (tuple(saved[head].shape), tuple(snap['sd'][head].shape))
+        log(f'[train_cli] warm start: {len(keep)} tensors re-initialised '
+            f'{sorted(keep)}, {len(snap["sd"]) - len(keep)} bit-equal to '
+            f'the checkpoint; semantic output layer {shapes[0]} -> '
+            f'{shapes[1]}; one step (iteration {ta.iteration_num}), launches '
+            f'{dict(KC.LAUNCHES)}; mismatches {bad}')
+        with open(os.path.join(acfg.exp_path, 'metrics.jsonl')) as f:
+            loss = [json.loads(line)['loss'] for line in f
+                    if '"loss"' in line]
+        # the iteration count and training time carry over, as in the JAX
+        # package's warm start
+        if (bad or ta.start_epoch != 0
+                or ta.iteration_num != payload['iteration_num'] + 1
+                or shapes != ((96, 20), (96, 28)) or 'Warm-started' not in text
+                or not np.isfinite(loss).all()):
+            raise AssertionError('the warm start failed')
+        row['warmstart_loss'] = loss[0]
+
+        # the Model facade against engine/state.forward, deterministic
+        # index_add_ on both sides
+        cfg = get_config(CLI_ARGS)
+        ids, _, _, is_fg = tables.get_tables('scannet')
+        m = Model(cfg, ids, tables.SCANNET_SEMANTIC_ID2IDX,
+                  np.arange(len(ids)), is_fg)
+        m.ensure_state()
+        quiet(m.load_checkpoint)
+        dev_np, _ = next(iter(loader.get_dataset(
+            cfg, 'val', do_augmentations=False).get_loader(
+                shuffle=False, drop_last=False)))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            got = m.get_prediction(dev_np, to_cpu=False, min_size=False)
+            want = S.forward(m.detection_model, upload(dev_np, device))
+            clipped = m.get_prediction(dev_np, to_cpu=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not (all(torch.equal(got[k], v) for k, v in want.items())
+                and torch.equal(clipped['mlp_bounds'], torch.clamp(
+                    want['mlp_bounds'], min=cfg.min_bb_size))):
+            raise AssertionError('Model.get_prediction differs from '
+                                 'engine/state.forward')
+        log(f'[train_cli] Model.get_prediction bit-equal to '
+            f'engine/state.forward on {len(want)} heads')
+
+        t0 = time.perf_counter()
+        rc, text = quiet(lambda: quality_gate.main(GATE_ARGS))
+        row['quality_gate_s'] = time.perf_counter() - t0
+        row['quality_gate'] = json.loads(text.strip().splitlines()[-1])
+        log('[train_cli] ' + json.dumps(row))
+        if rc != 0:
+            raise AssertionError(f'quality gate: {row["quality_gate"]}')
+    finally:
+        Trainer._resume = saved_resume
+        if saved_root is None:
+            os.environ.pop('BOX2MASK_EXP_ROOT', None)
+        else:
+            os.environ['BOX2MASK_EXP_ROOT'] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1501,6 +1939,14 @@ def main():
     # ---- 12. the datasets: ScanNet, ARKitScenes, S3DIS readers and evals
     ds_launches = datasets_phase(smi)
 
+    # ---- 13. training on the neighbor-map path
+    nt_rows, nt_launches = nmap_train_phase(tbatches, device, smi)
+    del tbatches
+
+    # ---- 14. training as users start it: the train CLI, warm start, the
+    # Model facade and the quality gate
+    cli_phase(device, smi)
+
     kernels = []
     # bf16 rows: the ScanNet preset's activations (phase 3's launches); f32
     # rows: the ARKitScenes and S3DIS presets' (no --bf16_acts), phase 12's
@@ -1535,6 +1981,14 @@ def main():
                 'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                 'bound_by': r['bound_by'], 'library_ms': r['library_ms']})
+    for r in nt_rows:               # phase 13's shapes and launches
+        kernels.append({
+            'name': r['name'], 'route': 'cuda', 'source': NMAP_SRC,
+            'replaces': TPU_NMAP_CONV if r['kernel'] == 'sparse_conv'
+            else TPU_GATHER, 'launches': nt_launches[r['kernel']],
+            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+            'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+            'bound_by': r['bound_by'], 'library_ms': r['library_ms']})
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -2,7 +2,7 @@
 --pallas_conv on; host-maps batches) as a whole against the JAX package's
 neighbor-map path: the forward on the same params, batch statistics and
 scenes (test_torch_forward's setup and bounds), the inference pipeline
-(test_torch_postproc's comparison), and the training guard.
+(test_torch_postproc's comparison), and a train step on its batches.
 
 Bounds. Pallas off: the forwards differ by the bf16 rounding flips of the
 conv operands, 1.5e-2 max / 3e-3 mean of the head's max |output| (f32
@@ -23,6 +23,7 @@ from box2mask_tpu.engine import state as JS
 from box2mask_torch import config as PC
 from box2mask_torch.convert import from_flax
 from box2mask_torch.datasets import batching as PB
+from box2mask_torch.datasets import supervision as PSup
 from box2mask_torch.datasets import synthetic as PSyn
 from box2mask_torch.datasets import tables as PT
 from box2mask_torch.datasets import voxelize as PV
@@ -125,15 +126,20 @@ def test_host_maps_pipeline_holds_one_scene():
 @pytest.mark.parametrize('extra', [NMAP, ['--key_conv', 'eval'],
                                    ['--host_coordinate_maps']])
 def test_train_step_on_nmap_batch_raises(extra):
-    """Training runs on key-matching batches only: a neighbor-map batch
-    (device or host maps) raises, naming the ROADMAP item, and never runs
-    the key path instead."""
-    pc = PC.get_config(ARGS + extra)
-    rets = [PV.voxelize_scene(PSyn.make_scene(seed=3, **SCENE)[0], pc)]
-    dev, _ = PB.build_batch(rets, pc, mode='train')
+    """A neighbor-map batch (device or host maps) no longer raises: it
+    trains on its maps, and never runs the key path instead (the step's
+    comparisons with the JAX package: tests/test_torch_nmap_train.py)."""
+    pc = PC.get_config(ARGS + ['--bb_supervision'] + extra)
+    scene, labels = PSyn.make_scene(seed=3, **SCENE)
+    ret = PV.voxelize_scene(scene, pc)
+    PSup.build_supervision(ret, labels, scene, pc, 'scannet')
+    dev, _ = PB.build_batch([ret], pc, PT.SCANNET_SEMANTIC_ID2IDX,
+                            mode='train')
+    assert S.is_nmap_batch(dev)
     batch = {k: torch.from_numpy(np.asarray(a)) for k, a in dev.items()}
     state = S.init_state(pc, S.build_model(pc, 20, 'cpu'),
                          S.make_optimizer(pc))
-    with pytest.raises(NotImplementedError, match='ROADMAP A18'):
-        S.train_step(pc, state, batch, 1e-3, 1.0, 0.0)
-    assert state.step == 0
+    KC.reset_counts()
+    _, ld = S.train_step(pc, state, batch, 1e-3, 1.0, 0.0)
+    assert state.step == 1 and torch.isfinite(ld['optimization_loss'])
+    assert sum(KC.PLAIN_CALLS.values()) + sum(KC.LAUNCHES.values()) == 0
