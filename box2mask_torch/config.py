@@ -131,8 +131,13 @@ def config_parser():
     add('--apple_warmstart', default=False, action='store_true')
     add('--profile_dir', type=str, default=None,
         help='Write a torch.profiler trace of train steps 10-14 to this dir.')
-    # the train CLI refuses these, naming the ROADMAP item (A11, A13)
-    add('--multigpu', default=False, action='store_true')
+    # data-parallel training (parallel/mesh.py): one process per card
+    add('--multigpu', default=False, action='store_true',
+        help='Data-parallel training, one process per local card '
+             '(torch.distributed, SyncBN moments, averaged grads).')
+    add('--singlegpu', default=False, action='store_true')
+    add('--data_axis_size', type=int, default=None,
+        help='Processes (cards) of --multigpu (default: every local card).')
     add('--batch_size', type=int, default=4)
     add('--remat', default=False, action='store_true')
     add('--no_auto_remat', default=False, action='store_true')
@@ -248,7 +253,12 @@ def get_config(args=None):
     argv = list(args) if args is not None else sys.argv[1:]
     argv = _apply_config_file(parser, argv)
     cfg, _ = parser.parse_known_args(argv)
+    if cfg.singlegpu:
+        cfg.multigpu = False
     if cfg.spatial_shards > 1:
+        if cfg.multigpu:
+            raise ValueError('--spatial_shards and --multigpu are mutually '
+                             'exclusive')
         cfg.batch_size = 1          # one scene, sharded across devices
     if cfg.dont_align:
         cfg.align = False
@@ -297,8 +307,9 @@ def get_config(args=None):
         if cfg.loss_weight_bb_iou is None:
             raise ValueError('bb IoU loss requires --loss_weight_bb_iou')
     # the shipped presets run as shipped: block remat when the step is past
-    # the memory rule (parameters are the same either way)
-    if (not cfg.remat and not cfg.no_auto_remat
+    # the memory rule (parameters are the same either way); --multigpu
+    # shards the batch, so the Trainer applies the rule to one rank's rows
+    if (not cfg.remat and not cfg.no_auto_remat and not cfg.multigpu
             and needs_remat(cfg.batch_size * cfg.vox_bucket, cfg.bf16_acts)):
         cfg.remat = True
         cfg.remat_auto = True

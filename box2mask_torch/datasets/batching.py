@@ -89,12 +89,22 @@ def _device_maps_ok(rets, cfg):
     return ok
 
 
-def _key_pyramid(rets, cfg, mode, ns):
+def common_level_pads(rets, vox_bucket):
+    """The level pads of one batch holding all of `rets` (the JAX package's
+    level_pads_for_scenes, sparse/device_maps.py:302): per-shard batches
+    built at these pads share their shapes."""
+    return level_pads([host_level_keys(r['vox_coords']) for r in rets],
+                      vox_bucket)
+
+
+def _key_pyramid(rets, cfg, mode, ns, pads=None):
     """The key-pyramid layout's level keys, its `device_nmaps` marker and
-    its level-0 voxel-axis arrays (interleaved, Vs = pad_0 rows a scene)."""
+    its level-0 voxel-axis arrays (interleaved, Vs = pad_0 rows a scene).
+    `pads` forces the level pads (default: this batch's own)."""
     B = len(rets)
     keys_per_scene = [host_level_keys(r['vox_coords']) for r in rets]
-    pads = level_pads(keys_per_scene, cfg.vox_bucket)
+    if pads is None:
+        pads = level_pads(keys_per_scene, cfg.vox_bucket)
     dev = {}
     for l in range(NUM_LEVELS):
         kb = np.full((B, pads[l]), SENT_KEY, np.int32)
@@ -115,13 +125,15 @@ def _key_pyramid(rets, cfg, mode, ns):
     return dev
 
 
-def build_batch(rets, cfg, sem_id2idx=None, mode='train', device_maps=None):
+def build_batch(rets, cfg, sem_id2idx=None, mode='train', device_maps=None,
+                level_pads=None, seg_pad=None):
     """rets: list of per-scene dicts from voxelize_scene (+ supervision).
     Labels are added unless mode == 'test' or the scenes carry none; they
     need the dataset's `sem_id2idx` table. `device_maps` None picks the
     layout as the module docstring says; False forces host maps. The two
     layouts differ only in the pyramid and in where `place` puts each
-    scene's voxel-axis rows."""
+    scene's voxel-axis rows. `level_pads` / `seg_pad` force the padded
+    sizes of the key-pyramid layout (the sharded loader's common shapes)."""
     if device_maps is None:
         device_maps = _device_maps_ok(rets, cfg)
     B = len(rets)
@@ -139,7 +151,7 @@ def build_batch(rets, cfg, sem_id2idx=None, mode='train', device_maps=None):
         'num_voxels': ns,
     }
     if device_maps:
-        dev = _key_pyramid(rets, cfg, mode, ns)
+        dev = _key_pyramid(rets, cfg, mode, ns, level_pads)
         Vs = host['interleaved_vs'] = dev['keys0_b'].shape[1]
 
         def place(arrays, fill=0, dtype=None):
@@ -166,7 +178,8 @@ def build_batch(rets, cfg, sem_id2idx=None, mode='train', device_maps=None):
     if cfg.do_segment_pooling:
         seg_sizes = [len(r['input_location']) for r in rets]
         S_total = sum(seg_sizes)
-        S_pad = max(C.round_up(S_total, cfg.seg_bucket), cfg.seg_bucket)
+        S_pad = seg_pad if seg_pad is not None else max(
+            C.round_up(S_total, cfg.seg_bucket), cfg.seg_bucket)
         seg_off = np.concatenate([[0], np.cumsum(seg_sizes)])
         dev['pooling_ids'] = place([r['seg2vox'] + seg_off[i]
                                     for i, r in enumerate(rets)],

@@ -1,5 +1,6 @@
 """Dataset classes + prefetching batch loader (the port's copy of
-box2mask_tpu/datasets/loader.py, single device).
+box2mask_tpu/datasets/loader.py; data-parallel shards as in its
+num_shards).
 
 The loader is a thread-pool prefetcher feeding padded host batches: the
 per-scene work is vectorized NumPy (it releases the GIL), and batches are
@@ -14,6 +15,7 @@ on the on-disk layouts they document) plus 'synthetic'
 
 from __future__ import annotations
 
+import functools
 import os
 import queue
 import threading
@@ -23,9 +25,11 @@ import numpy as np
 
 from box2mask_torch.datasets import (arkitscenes, augmentation, s3dis,
                                      scannet, supervision, synthetic)
-from box2mask_torch.datasets.batching import build_batch
+from box2mask_torch.datasets.batching import (_device_maps_ok, build_batch,
+                                              common_level_pads)
 from box2mask_torch.datasets.tables import get_tables
 from box2mask_torch.datasets.voxelize import voxelize_scene
+from box2mask_torch.sparse.coords import round_up
 
 
 def scene_rng(cfg, scene_name, epoch=0):
@@ -90,9 +94,10 @@ class SceneDataset:
         return ret
 
     def get_loader(self, shuffle=True, drop_last=True, batch_size=None,
-                   seed=None):
+                   seed=None, num_shards=1, shard=None):
         return BatchLoader(self, self.cfg, batch_size or self.cfg.batch_size,
-                           shuffle=shuffle, drop_last=drop_last, seed=seed)
+                           shuffle=shuffle, drop_last=drop_last, seed=seed,
+                           num_shards=num_shards, shard=shard)
 
 
 class Synthetic(SceneDataset):
@@ -184,18 +189,31 @@ def get_dataset(cfg, mode, do_augmentations=True):
 
 
 class BatchLoader:
-    """Iterates (host batch, host_meta) with background prefetch."""
+    """Iterates (host batch, host_meta) with background prefetch.
+
+    Data parallel (JAX loader.py:192-282): with `num_shards` D each step
+    takes the next batch_size x D scenes of one shuffled order, and shard d
+    gets the contiguous chunk [d B, (d + 1) B) of them. `num_shards` alone
+    yields the list of the D shards' batches, key-pyramid batches built at
+    common level and segment pads, as the JAX loader's; with `shard` r it
+    builds and yields only rank r's batch, at its own pads (every rank of a
+    torch.distributed run reads its own shard)."""
 
     def __init__(self, dataset, cfg, batch_size, shuffle=True, drop_last=True,
-                 seed=None):
+                 seed=None, num_shards=1, shard=None):
+        if shard is not None and not 0 <= shard < num_shards:
+            raise ValueError(f'shard {shard} of {num_shards}')
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.num_shards = num_shards
+        self.shard = shard
         self.epoch = 0
-        workers = max(1, min(cfg.num_workers, batch_size))
+        per_step = batch_size * (num_shards if shard is None else 1)
+        workers = max(1, min(cfg.num_workers, per_step))
         self._pool = ThreadPoolExecutor(max_workers=workers)
 
     def set_epoch(self, epoch):
@@ -203,10 +221,7 @@ class BatchLoader:
         self.dataset.epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset) // self.batch_size
-        if not self.drop_last and len(self.dataset) % self.batch_size:
-            n += 1
-        return max(n, 0)
+        return len(self.steps())
 
     def close(self):
         self._pool.shutdown(wait=True)
@@ -220,17 +235,42 @@ class BatchLoader:
         return idx
 
     def _build(self, indices):
+        D = self.num_shards
+        # shard d's contiguous chunk; a last partial group splits evenly too
+        per = len(indices) // D
+        if self.shard is not None:
+            indices = indices[self.shard * per:(self.shard + 1) * per]
         rets = list(self._pool.map(self.dataset.__getitem__, indices))
-        return build_batch(rets, self.cfg, self.dataset.sem_id2idx,
-                           mode=self.dataset.mode)
+        build = functools.partial(build_batch, cfg=self.cfg,
+                                  sem_id2idx=self.dataset.sem_id2idx,
+                                  mode=self.dataset.mode)
+        if D == 1 or self.shard is not None:
+            return build(rets)
+        chunks = [rets[d * per:(d + 1) * per] for d in range(D)]
+        if not _device_maps_ok(rets, self.cfg):
+            return [build(ch, device_maps=False) for ch in chunks]
+        seg_pad = None
+        if self.cfg.do_segment_pooling:
+            sb = self.cfg.seg_bucket
+            seg_pad = max(max(round_up(sum(len(r['input_location'])
+                                           for r in ch), sb)
+                              for ch in chunks), sb)
+        pads = common_level_pads(rets, self.cfg.vox_bucket)
+        return [build(ch, device_maps=True, level_pads=pads, seg_pad=seg_pad)
+                for ch in chunks]
 
     def steps(self):
-        """The index chunks of one pass, in order."""
+        """The index groups of one pass, in order: batch_size scenes (x
+        num_shards), the last partial group kept unless drop_last (under
+        shards only if every shard gets a scene: each rank takes the same
+        number of steps)."""
         order = self._order()
+        group = self.batch_size * self.num_shards
         out = []
-        for i in range(0, len(order), self.batch_size):
-            chunk = order[i:i + self.batch_size]
-            if len(chunk) < self.batch_size and self.drop_last:
+        for i in range(0, len(order), group):
+            chunk = order[i:i + group]
+            if len(chunk) < group and (self.drop_last
+                                       or len(chunk) < self.num_shards):
                 break
             out.append(chunk)
         return out

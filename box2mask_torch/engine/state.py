@@ -60,10 +60,12 @@ def ensure_maps(batch):
     return maps
 
 
-def build_model(cfg, num_classes, device=None):
+def build_model(cfg, num_classes, device=None, group=None):
     """SelectionNet for `cfg` with uninitialized conv kernels (load a
     state_dict, or convert.kaiming_init_), in eval mode, on `device` (None:
-    the card, runtime.resolve_device)."""
+    the card, runtime.resolve_device). With a process `group` its BN layers
+    take their training moments over the group's ranks (SyncBN, the JAX
+    package's axis_name)."""
     model = SelectionNet(
         num_classes=num_classes,
         in_channels=cfg.in_channels,
@@ -76,7 +78,7 @@ def build_model(cfg, num_classes, device=None):
         act_dtype=torch.bfloat16 if cfg.bf16_acts else torch.float32,
         # auto == off, as in the JAX package (engine/state.py:98-100)
         use_pallas=cfg.pallas_conv == 'on',
-        remat=cfg.remat, remat_max_level=cfg.remat_levels)
+        remat=cfg.remat, remat_max_level=cfg.remat_levels, group=group)
     model.eval()
     return model.to(resolve_device(device))
 

@@ -1,4 +1,5 @@
-"""Training loop for one device (port of box2mask_tpu/engine/train.py:47-344).
+"""Training loop, on one device or data parallel across processes (port of
+box2mask_tpu/engine/train.py:47-344).
 
 Experiment dir with args.txt + config copy, auto-resume from the latest
 time-encoded checkpoint, cosine LR, epoch-head checkpoint / val loss blocks,
@@ -10,8 +11,14 @@ go to `<exp>/metrics.jsonl`, one JSON object per line (ScalarLog, in place
 of the JAX package's tensorboard writer). It resumes from the port's
 checkpoints and from the JAX package's (engine/checkpoint.py).
 
-Not in this slice: multi-device and spatially sharded training (ROADMAP
-A11, A13).
+Data parallel (--multigpu): one Trainer per rank of a torch.distributed
+process group (box2mask_torch/train.py spawns them), each on its own device
+and its own shard of every batch (the loader's `shard`), its model built
+with the group (SyncBN) and its steps those of parallel/mesh.py. Every rank
+initialises, resumes, then takes rank 0's state (broadcast_state). Rank 0
+alone writes the checkpoints, the validation loss, the full evaluation, the
+scalars, the prints and the profiler trace, each followed by a barrier.
+Not in this slice: spatially sharded training (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import time
 import traceback
 
 import torch
+import torch.distributed as dist
 
 from box2mask_torch.config import needs_remat
 from box2mask_torch.datasets.loader import get_dataset
@@ -32,6 +40,7 @@ from box2mask_torch.engine import state as S
 from box2mask_torch.engine.evaluate import Evaluater
 from box2mask_torch.engine.infer import upload
 from box2mask_torch.engine.schedule import lr_for_epoch
+from box2mask_torch.parallel import mesh as M
 from box2mask_torch.runtime import resolve_device
 
 
@@ -84,29 +93,44 @@ def warmstart_fresh_params(model):
 
 
 class Trainer:
+    """`rank`, `world_size` and `group` place it in a data-parallel run
+    (parallel/mesh.init_data_parallel); the defaults train on one
+    device."""
+
     def __init__(self, cfg, train_dataset, val_dataset, num_classes=None,
-                 device=None):
+                 device=None, rank=0, world_size=1, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rank, self.world_size = rank, world_size
+        self.group = group if world_size > 1 else None
+        self.main = rank == 0
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         valid_ids, _, _, _ = get_tables(train_dataset.table_name)
         self.num_classes = num_classes or len(valid_ids)
         self.tx = S.make_optimizer(cfg)
-        self.train_step = S.make_train_step(cfg)
+        if self.group is not None:
+            self.train_step = M.make_parallel_train_step(cfg, self.group)
+            self.train_loader = train_dataset.get_loader(
+                num_shards=world_size, shard=rank)
+        else:
+            self.train_step = S.make_train_step(cfg)
+            self.train_loader = train_dataset.get_loader()
+        # the validation loss runs on rank 0 alone, unsharded (BN on the
+        # running statistics: no collective), as the JAX Trainer's
         self.val_step = S.make_val_step(cfg)
-        self.train_loader = train_dataset.get_loader()
         self.val_loader = val_dataset.get_loader(
-            shuffle=True, drop_last=False) if val_dataset is not None else None
+            shuffle=True, drop_last=False) if (
+                val_dataset is not None and self.main) else None
 
         # experiment dir + provenance
-        os.makedirs(cfg.exp_path, exist_ok=True)
         os.makedirs(cfg.checkpoint_path, exist_ok=True)
-        with open(os.path.join(cfg.exp_path, 'args.txt'), 'w') as f:
-            f.write(repr(vars(cfg)))
-        if cfg.config and os.path.exists(cfg.config):
-            shutil.copyfile(cfg.config, os.path.join(
-                cfg.exp_path, os.path.basename(cfg.config)))
+        if self.main:
+            with open(os.path.join(cfg.exp_path, 'args.txt'), 'w') as f:
+                f.write(repr(vars(cfg)))
+            if cfg.config and os.path.exists(cfg.config):
+                shutil.copyfile(cfg.config, os.path.join(
+                    cfg.exp_path, os.path.basename(cfg.config)))
         self.metrics = ScalarLog(os.path.join(cfg.exp_path, 'metrics.jsonl'))
 
         self.state = None
@@ -117,7 +141,17 @@ class Trainer:
         self.val_min = ckpt.read_val_min(cfg.exp_path)
 
     def log(self, **scalars):
-        self.metrics.log(**scalars)
+        if self.main:
+            self.metrics.log(**scalars)
+
+    def say(self, text):
+        if self.main:
+            print(text, flush=True)
+
+    def barrier(self):
+        """All ranks wait here (after work of rank 0 alone)."""
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     # ------------------------------------------------------------------ setup
     def _ensure_state(self, sample_batch):
@@ -126,18 +160,45 @@ class Trainer:
         cfg = self.cfg
         # the first real batch's half of the auto-remat rule (config
         # .needs_remat): flip remat from the padded row count, which
-        # get_config cannot know for configs that leave vox_bucket small
+        # get_config cannot know for configs that leave vox_bucket small.
+        # Data parallel: from one rank's rows (the JAX Trainer divides one
+        # device's rows by the device count once more, ROADMAP section C),
+        # the most of any rank, so that every rank remats alike and issues
+        # its BN all-reduces in the same order
         rows = int(sample_batch['valid0'].shape[0])
+        if self.group is not None:
+            r = torch.tensor([rows], dtype=torch.int64,
+                             device=M.collective_device(self.group,
+                                                         sample_batch[
+                                                             'valid0']))
+            dist.all_reduce(r, op=dist.ReduceOp.MAX, group=self.group)
+            rows = int(r.item())
         if (not cfg.remat and not cfg.no_auto_remat
                 and needs_remat(rows, cfg.bf16_acts)):
             cfg.remat = True
             cfg.remat_auto = True
-            print(f'auto-remat: {rows} padded rows/step is past the memory '
-                  'rule without block remat (--no_auto_remat to override)')
-        model = S.build_model(cfg, self.num_classes, self.device)
+            self.say(f'auto-remat: {rows} padded rows/step is past the '
+                     'memory rule without block remat (--no_auto_remat to '
+                     'override)')
+        model = S.build_model(cfg, self.num_classes, self.device,
+                              group=self.group)
         self.state = S.init_state(cfg, model, self.tx,
                                   seed=cfg.fixed_seed or 0)
         self._resume()
+        if self.group is not None:
+            M.broadcast_state(self.state, self.group)
+            self.training_time, self.iteration_num, self.start_epoch = (
+                self._broadcast_counts())
+
+    def _broadcast_counts(self):
+        """Rank 0's training time, iteration and start epoch."""
+        c = torch.tensor([self.training_time, self.iteration_num,
+                          self.start_epoch], dtype=torch.float64,
+                         device=M.collective_device(
+                             self.group, self.state.params[0]))
+        dist.broadcast(c, 0, group=self.group)
+        t, it, ep = c.tolist()
+        return t, int(it), int(ep)
 
     def _resume(self):
         """Resume from the experiment's latest checkpoint (the port's or the
@@ -152,7 +213,7 @@ class Trainer:
         cfg = self.cfg
         path = ckpt.find_checkpoint(cfg.checkpoint_path)
         if path is None:
-            print(f'No checkpoints found at {cfg.checkpoint_path}')
+            self.say(f'No checkpoints found at {cfg.checkpoint_path}')
             return
         keep = warmstart_fresh_params(self.state.model) \
             if cfg.apple_warmstart else ()
@@ -162,10 +223,11 @@ class Trainer:
                                       keep=keep)
         if cfg.apple_warmstart:
             self.start_epoch = 0
-            print(f'Warm-started from {name} (semantic output layer re-init)')
+            self.say(f'Warm-started from {name} (semantic output layer '
+                     're-init)')
             return
         self.start_epoch = epoch
-        print(f'Resumed from {name} (epoch {epoch})')
+        self.say(f'Resumed from {name} (epoch {epoch})')
 
     # ------------------------------------------------------------------ steps
     def compute_val_loss(self, epoch):
@@ -212,9 +274,12 @@ class Trainer:
                 # epoch-head block (reference training.py:99-152)
                 if batch_num == 0 and not (
                         epoch == self.start_epoch and cfg.skip_first_eval):
-                    self._epoch_head(epoch)
+                    if self.main:
+                        self._epoch_head(epoch)
+                    self.barrier()
 
-                if cfg.profile_dir and self.iteration_num == 10:
+                if (cfg.profile_dir and self.iteration_num == 10
+                        and self.main):
                     self._profiler = _start_profiler(cuda)
                 t1 = time.time()
                 self.state, ld = self.train_step(self.state, batch, lr, bb_w,
@@ -235,9 +300,9 @@ class Trainer:
                          max_memory_allocated=(
                              torch.cuda.max_memory_allocated(self.device)
                              if cuda else None))
-                print(f'epoch {epoch} it {self.iteration_num} '
-                      f'loss {loss:.4f} (prep {prep_time:.2f}s '
-                      f'step {step_time:.2f}s)')
+                self.say(f'epoch {epoch} it {self.iteration_num} '
+                         f'loss {loss:.4f} (prep {prep_time:.2f}s '
+                         f'step {step_time:.2f}s)')
 
             self.log(epoch=epoch, iteration=self.iteration_num,
                      **{f'train_epoch/{k}': v / max(epoch_n, 1)

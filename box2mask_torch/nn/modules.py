@@ -76,10 +76,13 @@ class MaskedBatchNorm(nn.Module):
     running statistics. In training the running statistics move once per
     forward, unless `update_stats` is off: a block rematerialized in the
     backward (nn/unet.py) turns it off while it recomputes, as flax's
-    nn.remat discards the mutations of its recomputation."""
+    nn.remat discards the mutations of its recomputation. With a process
+    `group` the batch moments are those of every rank's valid rows
+    (ops.masked_moments: SyncBatchNorm, the JAX package's axis_name), so
+    the running statistics move alike on every rank."""
 
     def __init__(self, features, momentum=0.1, epsilon=1e-5,
-                 act_dtype=torch.float32):
+                 act_dtype=torch.float32, group=None):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -88,11 +91,12 @@ class MaskedBatchNorm(nn.Module):
         self.momentum = momentum
         self.epsilon = epsilon
         self.act_dtype = act_dtype
+        self.group = group
         self.update_stats = True
 
     def forward(self, x, valid, n_valid):
         if self.training:
-            mean, var, n = ops.masked_moments(x, valid, n_valid)
+            mean, var, n = ops.masked_moments(x, valid, n_valid, self.group)
         else:
             mean, var = self.mean, self.var
         if self.training and self.update_stats:
@@ -110,19 +114,20 @@ class BasicBlock(nn.Module):
     + ReLU."""
 
     def __init__(self, cin, features, compute_dtype=torch.bfloat16,
-                 use_pallas=False, act_dtype=torch.float32):
+                 use_pallas=False, act_dtype=torch.float32, group=None):
         super().__init__()
         ad = act_dtype
         conv = dict(compute_dtype=compute_dtype, use_pallas=use_pallas,
                     act_dtype=ad)
+        bn = dict(act_dtype=ad, group=group)
         self.SparseConv_0 = SparseConv(cin, features, 27, **conv)
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, act_dtype=ad)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, **bn)
         self.SparseConv_1 = SparseConv(features, features, 27, **conv)
-        self.MaskedBatchNorm_1 = MaskedBatchNorm(features, act_dtype=ad)
+        self.MaskedBatchNorm_1 = MaskedBatchNorm(features, **bn)
         if cin != features:
             self.downsample_conv = Linear1x1(cin, features, use_bias=False,
                                              compute_dtype=compute_dtype)
-            self.downsample_bn = MaskedBatchNorm(features, act_dtype=ad)
+            self.downsample_bn = MaskedBatchNorm(features, **bn)
         else:
             self.downsample_conv = None
         self.act_dtype = ad

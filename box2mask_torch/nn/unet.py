@@ -21,6 +21,10 @@ training mode BN normalizes with batch moments and moves its running
 statistics; with `remat`, the BasicBlocks of levels <= `remat_max_level`
 are rematerialized in the backward (torch.utils.checkpoint, the JAX
 package's nn.remat at unet.py:134-146), and their BN statistics move once.
+With a process `group` every BN takes its moments over all ranks' rows
+(data parallel, parallel/mesh.py); a block rematerialized in the backward
+then issues its BN all-reduces once more, so every rank must remat the same
+blocks (engine/train.py decides remat alike on every rank).
 """
 
 from __future__ import annotations
@@ -48,13 +52,15 @@ class HeadMLP(nn.Module):
     output stays f32."""
 
     def __init__(self, cin, out_dim, hidden=96, compute_dtype=torch.bfloat16,
-                 act_dtype=torch.float32):
+                 act_dtype=torch.float32, group=None):
         super().__init__()
         cd, ad = compute_dtype, act_dtype
         self.Linear1x1_0 = Linear1x1(cin, hidden, compute_dtype=cd)
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(hidden, act_dtype=ad)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(hidden, act_dtype=ad,
+                                                 group=group)
         self.Linear1x1_1 = Linear1x1(hidden, hidden, compute_dtype=cd)
-        self.MaskedBatchNorm_1 = MaskedBatchNorm(hidden, act_dtype=ad)
+        self.MaskedBatchNorm_1 = MaskedBatchNorm(hidden, act_dtype=ad,
+                                                 group=group)
         self.Linear1x1_2 = Linear1x1(hidden, out_dim, compute_dtype=cd)
         self.act_dtype = ad
 
@@ -89,12 +95,14 @@ class SelectionNet(nn.Module):
                  layers=2, do_segment_pooling=True, max_pool_segments=False,
                  mlp_bounds_relu=False, stem_kernel=5,
                  compute_dtype=torch.bfloat16, act_dtype=torch.float32,
-                 use_pallas=False, remat=False, remat_max_level=7):
+                 use_pallas=False, remat=False, remat_max_level=7,
+                 group=None):
         super().__init__()
         if layers < 1:
             raise ValueError(f'layers must be >= 1, got {layers}')
         cd, ad = compute_dtype, act_dtype
         conv = dict(compute_dtype=cd, use_pallas=use_pallas, act_dtype=ad)
+        bn = dict(act_dtype=ad, group=group)
         self.heads = tuple(heads)
         self.layers = layers
         self.do_segment_pooling = do_segment_pooling
@@ -107,16 +115,16 @@ class SelectionNet(nn.Module):
         def blocks(stage, cin, planes):
             for i in range(layers):
                 self.add_module(f'{stage}_block{i}', BasicBlock(
-                    cin if i == 0 else planes, planes, **conv))
+                    cin if i == 0 else planes, planes, group=group, **conv))
 
         self.stem_conv = SparseConv(in_channels, INIT_DIM, stem_kernel ** 3,
                                     **conv)
-        self.stem_bn = MaskedBatchNorm(INIT_DIM, act_dtype=ad)
+        self.stem_bn = MaskedBatchNorm(INIT_DIM, **bn)
         skip_ch = [INIT_DIM]
         c = INIT_DIM
         for l in range(1, 8):
             self.add_module(f'down{l}_conv', SparseConv(c, c, 8, **conv))
-            self.add_module(f'down{l}_bn', MaskedBatchNorm(c, act_dtype=ad))
+            self.add_module(f'down{l}_bn', MaskedBatchNorm(c, **bn))
             blocks(f'enc{l}', c, ENC_PLANES[l - 1])
             c = ENC_PLANES[l - 1]
             skip_ch.append(c)
@@ -124,14 +132,14 @@ class SelectionNet(nn.Module):
             planes = DEC_PLANES[i]
             self.add_module(f'up{l}_tr', SparseConvTranspose(c, planes,
                                                              **conv))
-            self.add_module(f'up{l}_bn', MaskedBatchNorm(planes, act_dtype=ad))
+            self.add_module(f'up{l}_bn', MaskedBatchNorm(planes, **bn))
             blocks(f'dec{l}', planes + skip_ch[l], planes)
             c = planes
         dims = dict(HEAD_DIMS, mlp_semantics=num_classes,
                     mlp_per_vox_semantics=num_classes)
         for head in self.heads:
             self.add_module(head, HeadMLP(c, dims[head], compute_dtype=cd,
-                                          act_dtype=ad))
+                                          **bn))
 
     def forward(self, batch):
         def block_stage(x, level, stage):

@@ -28,7 +28,10 @@ Phases, in order; any failure exits non-zero:
      and one step under torch.profiler;
   7. one step's gradients with the kernels against the plain twins'
      backward on the kernels' own forward, and against the twins' whole
-     step, per parameter tensor;
+     step, per parameter tensor, on the state that a warm-up and
+     TRAIN_STEPS steps of phase 6's schedule reach from its initial
+     weights, re-run under deterministic algorithms (`replayed_state`), so
+     that every run reads the same state;
   8. the neighbor-map kernels (sparse_conv: stem, 3^3, down; gather_rows:
      the up convs' row pick) against their plain twins on the neighbor maps
      of the same 4 ScanNet-scale scenes, timed (gather_rows and
@@ -79,8 +82,9 @@ Phases, in order; any failure exits non-zero:
      step split into forward, backward and optimizer, peak memory, the
      backward under torch.profiler; one step's grads against the twins'
      backward on the same forward graph and the twins' whole step (phase
-     7's bounds); the level-0 3^3 conv's forward, dx and dw and the up
-     1->0 row pick at the training shapes (`[nmap_train_conv]`); one more
+     7's bounds, on the state its steps reach, replayed as in phase 7);
+     the level-0 3^3 conv's forward, dx and dw and the up 1->0 row pick
+     at the training shapes (`[nmap_train_conv]`); one more
      step on a host-maps batch holding a 24 m room (past 1024 voxels of
      2 cm on an axis);
  14. training as users start it, in a temporary experiment root: `python
@@ -93,7 +97,26 @@ Phases, in order; any failure exits non-zero:
      bit-equal to the checkpoint, one finite step; Model.get_prediction bit-equal to
      engine/state.forward; `python -m box2mask_torch.quality_gate` at
      GATE_ARGS, which must pass; one `[train_cli]` line of their times.
-Prints the card's name and power limit, one JSON line of per-kernel numbers,
+ 15. data-parallel training (parallel/mesh.py) on phase 6's batches and
+     initial weights: (a) a group of one NCCL rank, whose step is
+     bit-equal to phase 6's S.train_step on the same batch and weights
+     (loss dict, every grad, BN running statistics, parameters; both under
+     deterministic algorithms), both steps timed in turns, and the grads'
+     all-reduce (bytes, ms); `python -m box2mask_torch.train --multigpu`
+     in a subprocess, one NCCL rank per card, 2 epochs of the synthetic
+     preset, a checkpoint, the ranks' parameters equal at the end; (b) two
+     gloo ranks, both on this card, each
+     on its loader shard of 4 of every batch of 8, from rank 0's weights:
+     DP_STEPS steps on each conv path (key matching; --key_conv off
+     --pallas_conv on), every loss finite and equal on the ranks, the
+     parameters bit-equal across the ranks after every step, every
+     training kernel launched on every rank (neighbor maps: 120
+     sparse_conv and 7 gather_rows launches per step), no twin, no XLA
+     formulation; one step's averaged grads within phase 7's bounds of the
+     twins' data-parallel backward on the same forward graph; (c) the same
+     over NCCL, one card per rank, where the machine has two cards.
+Prints the card's name and power limit, one JSON line of per-kernel numbers
+(with each kernel's launches on one rank of phase 15 (b), `dp_launches`),
 and last `{"ok": true, "device": {...}}`.
 """
 
@@ -104,15 +127,18 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 
 import numpy as np
 import torch
+import torch.multiprocessing as mp
 
 from box2mask_torch import evaluate as eval_cli
 from box2mask_torch import quality_gate, train as train_cli
@@ -126,6 +152,7 @@ from box2mask_torch.engine.evaluate import Evaluater
 from box2mask_torch.engine.infer import FusedInferencePipeline, upload
 from box2mask_torch.engine.train import Trainer, warmstart_fresh_params
 from box2mask_torch.model import Model
+from box2mask_torch.parallel import mesh as M
 from box2mask_torch.postprocess import device_post as DP
 from box2mask_torch.postprocess.device_post import (fused_postproc,
                                                     stacked_masks_to_results)
@@ -430,9 +457,10 @@ def stage_phase(pipe, cfg, batches, device, smi, tag=''):
     profile_window(f'{tag}profile', window, smi)
 
 
-def profile_window(tag, fn, smi):
+def profile_window(tag, fn, smi, sums=()):
     """fn() under torch.profiler: wall time, device busy time, idle share
-    and the kernels by device time, as one `[tag]` JSON line."""
+    and the kernels by device time, as one `[tag]` JSON line; with the
+    device ms and count of the kernels whose names hold each of `sums`."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -452,7 +480,12 @@ def profile_window(tag, fn, smi):
         'card': smi, 'wall_ms': wall_ms, 'device_busy_ms': busy,
         'idle_share': 1.0 - busy / wall_ms,
         'top': [{'name': k[:100], 'ms': t, 'calls': c}
-                for k, (t, c) in top[:12]]}))
+                for k, (t, c) in top[:12]],
+        **{f'{sub}_ms_calls': [sum(t for k, (t, _) in agg.items()
+                                   if sub in k.lower()),
+                               sum(c for k, (_, c) in agg.items()
+                                   if sub in k.lower())]
+           for sub in sums}}))
     if busy <= 0:
         raise AssertionError('the profiler saw no device time')
 
@@ -609,7 +642,7 @@ def train_phase(cfg, batches, device, smi):
         'launches': launches}))
     profile_window('train_profile', lambda: S.train_step(
         cfg, state, dev[0], lrs[-1], bb_w, cs_w), smi)
-    return state, dev, launches
+    return state, dev, launches, wall / TRAIN_STEPS * 1e3
 
 
 def grad_distance(a, b):
@@ -654,6 +687,37 @@ def nmap_launch_check(name, out, ref, a, kw):
     return rel, ok and bool(torch.isfinite(out).all())
 
 
+def replayed_state(cfg, dev, steps):
+    """The state of phase 6's schedule (phase 13's under its cfg): seed 1's
+    weights after the warm-up step and `steps` steps cycling over `dev`,
+    under deterministic algorithms. Phase 6's own steps sum with CUDA
+    atomics (index_add_), so the state they leave differs from run to run,
+    and the whole-step distance of phase 7 is a function of the state."""
+    n_classes = len(tables.get_tables('scannet')[0])
+    state = S.init_state(cfg, S.build_model(cfg, n_classes),
+                         S.make_optimizer(cfg), seed=1)
+    bb_w, cs_w = S.head_weights(cfg, 200)
+    with deterministic():
+        S.train_step(cfg, state, dev[0], cfg.lr, bb_w, cs_w)
+        for i in range(steps):
+            S.train_step(cfg, state, dev[i % len(dev)],
+                         cfg.lr * (1 - 0.1 * i), bb_w, cs_w)
+    return state
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms (index_add_ without atomics) inside, the
+    previous setting after."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
 def grads_phase(cfg, state, batch):
     """Phase 7 on the key path: the four key_conv kernels of the step."""
     twin = {'key_conv': KC.key_conv_plain,
@@ -663,9 +727,10 @@ def grads_phase(cfg, state, batch):
             'key_conv_dw': KC.key_conv_dw_plain,
             'key_conv_stem_dw': lambda x, g, kin: KC.key_conv_dw_plain(
                 x, g, kin, kin.reshape(-1), kernel_size=5)}
-    step_grads_check('grads', cfg, state, batch, KC,
-                     {k: getattr(KC, k) for k in twin}, twin,
-                     key_launch_check)
+    with deterministic():
+        step_grads_check('grads', cfg, state, batch, KC,
+                         {k: getattr(KC, k) for k in twin}, twin,
+                         key_launch_check)
 
 
 def step_grads_check(tag, cfg, state, batch, module, kern, twin, check):
@@ -675,7 +740,9 @@ def step_grads_check(tag, cfg, state, batch, module, kern, twin, check):
     against (a) the twins' backward on the kernels' own forward graph (the
     presets run without remat, so that backward recomputes no forward) and
     (b) the twins' whole step. In the kernels' pass every launch is also
-    held to its twin on the same inputs (`check`)."""
+    held to its twin on the same inputs (`check`). The callers run it
+    under deterministic algorithms, on a replayed state: the readings are
+    the same in every run."""
     bb_w, cs_w = S.head_weights(cfg, 200)
     names = [n for n, _ in state.model.named_parameters()]
     params = [p for _, p in state.model.named_parameters()]
@@ -1528,9 +1595,11 @@ def nmap_train_phase(tbatches, device, smi):
 
     twin = {'sparse_conv': PC.sparse_conv_plain,
             'gather_rows': PC.gather_rows_plain}
-    step_grads_check('nmap_grads', cfg, state, dev[1], PC,
-                     {k: getattr(PC, k) for k in twin}, twin,
-                     nmap_launch_check)
+    with deterministic():
+        step_grads_check('nmap_grads', cfg,
+                         replayed_state(cfg, dev, NMAP_TRAIN_STEPS), dev[1],
+                         PC, {k: getattr(PC, k) for k in twin}, twin,
+                         nmap_launch_check)
     rows = nmap_train_conv(S.ensure_maps(dev[0]), smi)
     del dev
     nmap_host_maps_step(cfg, state, device, smi)
@@ -1826,6 +1895,371 @@ def cli_phase(device, smi):
     return row
 
 
+# phase 15: data-parallel training (parallel/mesh.py) on the preset as it
+# ships, phase 6's batches and initial weights (seed 1).
+DP_STEPS = 3
+DP_TIMEOUT_S = 420.0           # the ranks' run, spawn to join
+
+
+def dp_ws1_phase(cfg, tbatches, device, smi, phase6_ms):
+    """(a) A group of one NCCL rank on the card: the data-parallel step
+    (SyncBN moments through the all-reduce, grads and losses pmean'd)
+    bit-equal to S.train_step on phase 6's first batch from the same
+    weights, both under deterministic algorithms: the loss dict, every
+    grad, the BN running statistics and the parameters after the update.
+    Then both steps timed in turns, and the grads' all-reduce alone."""
+    n_classes = len(tables.get_tables('scannet')[0])
+    rdv = tempfile.mkdtemp(prefix='b2m_dp_')
+    group = M.init_data_parallel(0, 1, 'nccl', 'file://' + os.path.join(
+        rdv, 'init'), device, timeout=300)
+    try:
+        dev = [upload(d, device) for d, _ in tbatches]
+        bb_w, cs_w = S.head_weights(cfg, 200)
+        runs = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as warned:
+                warnings.simplefilter('always')
+                for tag, g in (('plain', None), ('dp', group)):
+                    state = S.init_state(
+                        cfg, S.build_model(cfg, n_classes, device, group=g),
+                        S.make_optimizer(cfg), seed=1)
+                    step = (S.make_train_step(cfg) if g is None
+                            else M.make_parallel_train_step(cfg, g))
+                    grads, apply_update = [], S.apply_update
+
+                    def record(st, lr):
+                        grads.append([p.grad.clone() for p in st.params])
+                        return apply_update(st, lr)
+                    S.apply_update = record
+                    try:
+                        _, ld = step(state, dev[0], cfg.lr, bb_w, cs_w)
+                    finally:
+                        S.apply_update = apply_update
+                    runs[tag] = (ld, grads[0], {
+                        k: v.detach().clone()
+                        for k, v in state.model.state_dict().items()},
+                        state, step)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (l1, g1, s1, st1, step1), (l2, g2, s2, st2, step2) = (
+            runs['plain'], runs['dp'])
+        same = {
+            'loss_dict': sorted(l1) == sorted(l2) and all(
+                torch.equal(l1[k], l2[k]) for k in l1),
+            'grads': len(g1) == len(g2) and all(
+                torch.equal(a, b) for a, b in zip(g1, g2)),
+            'bn_running_stats': all(torch.equal(s1[k], s2[k])
+                                    for k, _ in st1.model.named_buffers()),
+            'params_after': all(torch.equal(s1[k], s2[k])
+                                for k, _ in st1.model.named_parameters())}
+        nondet = sorted({str(w.message).split(' does not have')[0][:80]
+                         for w in warned if 'deterministic' in
+                         str(w.message)})
+        log(f'[dp_ws1] one NCCL rank vs S.train_step, phase 6\'s first batch '
+            f'and weights, deterministic algorithms: bit-equal {same} '
+            f'({len(l1)} losses, {len(g1)} grads, '
+            f'{sum(1 for _ in st1.model.buffers())} BN buffers); ops '
+            f'without a deterministic version: {nondet}')
+        if not all(same.values()):
+            raise AssertionError(f'world size 1 differs from the one-device '
+                                 f'step: {same}')
+        del g1, g2, s1, s2
+        # in turns: plain, data parallel, data parallel, plain
+        times = {'plain': [], 'dp': []}
+        for tag in ('plain', 'dp', 'dp', 'plain'):
+            _, _, _, st, step = runs[tag]
+            for i in range(DP_STEPS):
+                _, t = sync_ms(lambda: step(st, dev[i % 2], cfg.lr, bb_w,
+                                            cs_w))
+                times[tag].append(t)
+        ld = S.forward_losses(cfg, st2, dev[1], bb_w, cs_w)
+        S.backward(ld)
+        grads = [p.grad for p in st2.params]
+        nbytes = M.all_reduce_mean_(grads, group)
+        ar_ms = time_ms(lambda: M.all_reduce_mean_(grads, group))
+        for p in st2.params:
+            p.grad = None
+        profile_window('dp_ws1_profile', lambda: step2(
+            st2, dev[0], cfg.lr, bb_w, cs_w), smi, sums=('nccl',))
+        row = {'card': smi, 'steps': 2 * DP_STEPS,
+               'plain_ms_per_step': statistics.median(times['plain']),
+               'dp_ms_per_step': statistics.median(times['dp']),
+               'phase6_ms_per_step': phase6_ms,
+               'times_ms': times, 'grad_allreduce_bytes': nbytes,
+               'grad_allreduce_ms': ar_ms}
+        log('[dp_ws1] ' + json.dumps(row))
+    finally:
+        M.teardown()
+        shutil.rmtree(rdv, ignore_errors=True)
+    del runs, dev, st1, st2, ld, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def dp_cli_check(smi):
+    """`python -m box2mask_torch.train --multigpu` as users start it, in a
+    subprocess: one NCCL rank per card of this machine (here one), 2
+    epochs of the synthetic preset on 16 scenes with a checkpoint at the
+    epoch-1 head; the run must end with its ranks' parameters equal."""
+    root = tempfile.mkdtemp(prefix='b2m_dp_cli_')
+    env = dict(os.environ, BOX2MASK_EXP_ROOT=root)
+    env.pop('BOX2MASK_PLATFORM', None)
+    t0 = time.perf_counter()
+    # its own process group, so that a timeout ends the spawned ranks too
+    p = subprocess.Popen(
+        [sys.executable, '-m', 'box2mask_torch.train'] + CLI_ARGS
+        + ['--multigpu', '--dataset_size', '16', '--num_epochs', '2'],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=300)
+        wall = time.perf_counter() - t0
+        ranks = torch.cuda.device_count()
+        ckpts = checkpoint.list_checkpoints(os.path.join(
+            root, 'synthetic', 'checkpoints'))
+        losses = [float(line.split('loss ')[1].split()[0])
+                  for line in out.splitlines() if ' loss ' in line]
+        log(f'[dp_cli] python -m box2mask_torch.train --multigpu: exit '
+            f'{p.returncode}, {ranks} NCCL ranks, {len(losses)} steps, '
+            f'losses first / last {losses[:1]} / {losses[-1:]}, '
+            f'checkpoints {len(ckpts)}, {wall:.1f} s on {smi}')
+        if (p.returncode != 0 or len(ckpts) != 1 or not losses
+                or not np.isfinite(losses).all()
+                or f'{ranks} ranks ended with equal parameters' not in out):
+            raise AssertionError(f'--multigpu CLI run failed: '
+                                 f'{out[-2000:]}\n{err[-4000:]}')
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def scene_name(scene):
+    """A host batch's scene entry (a synthetic scene is its dict)."""
+    return scene['name'] if isinstance(scene, dict) else str(scene)
+
+
+def dp_rank(rank, world, backend, init, out_dir, cards):
+    """One rank of (b) / (c), in a spawned process on cuda:cards[rank]."""
+    try:
+        device = resolve_device(torch.device('cuda', cards[rank]))
+        group = M.init_data_parallel(rank, world, backend, init, device,
+                                     timeout=DP_TIMEOUT_S)
+        try:
+            res = dp_rank_run(rank, world, group, device)
+        finally:
+            M.teardown()
+        with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f'rank{rank}.err'), 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def dp_rank_run(rank, world, group, device):
+    """The rank's shard of phase 6's batches (its loader's `shard`: scenes
+    [4 r, 4 r + 4) of each batch of 8), phase 6's weights (seed 1, taken
+    from rank 0); per conv path DP_STEPS data-parallel steps with the
+    kernels, their counts set to 0 just before and read just after, the
+    parameters' digest after each; one step's averaged grads against the
+    twins' data-parallel backward on the same forward graph."""
+    cfg = get_config(TRAIN_ARGS)
+    ld = loader.get_dataset(cfg, 'train').get_loader(
+        batch_size=cfg.batch_size // world, num_shards=world, shard=rank)
+    batches = list(ld)
+    ld.close()
+    n_classes = len(tables.get_tables('scannet')[0])
+    out = {'scenes': [[scene_name(s) for s in h['scene']]
+                      for _, h in batches]}
+    for path, flags in (('key', []), ('nmap', NMAP_FLAGS)):
+        pcfg = get_config(TRAIN_ARGS + flags)
+        marker = ({batching.DEVICE_NMAPS: np.ones((), bool)}
+                  if path == 'nmap' else {})
+        dev = [upload(dict(d, **marker), device) for d, _ in batches]
+        state = S.init_state(pcfg, S.build_model(pcfg, n_classes, device,
+                                                 group=group),
+                             S.make_optimizer(pcfg), seed=1)
+        M.broadcast_state(state, group)
+        step = M.make_parallel_train_step(pcfg, group)
+        bb_w, cs_w = S.head_weights(pcfg, 200)
+        step(state, dev[0], pcfg.lr, bb_w, cs_w)                # warm-up
+        torch.cuda.synchronize()
+        reset_all_counts()
+        losses, ms, digests = [], [], []
+        for i in range(DP_STEPS):
+            (_, l), t = sync_ms(lambda: step(state, dev[i % 2],
+                                             pcfg.lr * (1 - 0.1 * i), bb_w,
+                                             cs_w))
+            losses.append({k: float(v) for k, v in l.items()})
+            ms.append(t)
+            M.check_replicas(state, group)
+            digests.append(M.replica_digest(state))
+        counts = {'key_conv': dict(KC.LAUNCHES),
+                  'key_conv_twins': dict(KC.PLAIN_CALLS),
+                  'pallas_conv': dict(PC.LAUNCHES),
+                  'pallas_conv_twins': dict(PC.PLAIN_CALLS),
+                  'xla': dict(ops.XLA_CALLS)}
+        if path == 'key':
+            twin = {'key_conv': KC.key_conv_plain,
+                    'key_conv_stem': lambda x, kin, w: KC.key_conv_plain(
+                        x, kin, kin.reshape(-1), w, kernel_size=5,
+                        out_dtype=torch.float32),
+                    'key_conv_dw': KC.key_conv_dw_plain,
+                    'key_conv_stem_dw': lambda x, g, kin: (
+                        KC.key_conv_dw_plain(x, g, kin, kin.reshape(-1),
+                                             kernel_size=5))}
+            module = KC
+        else:
+            twin = {'sparse_conv': PC.sparse_conv_plain,
+                    'gather_rows': PC.gather_rows_plain}
+            module = PC
+        l2, cos, ar_ms = dp_grads_check(pcfg, state, dev[1], group, module,
+                                        twin)
+        out[path] = {'losses': losses, 'ms': ms, 'digests': digests,
+                     'counts': counts, 'grads_l2': l2, 'grads_cos': cos,
+                     'grad_allreduce_ms': ar_ms,
+                     'peak_GB': torch.cuda.max_memory_allocated(device)
+                     / 1e9}
+        del state, dev, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_grads_check(cfg, state, batch, group, module, twin):
+    """One data-parallel step's grads (BN moments over the ranks, grads
+    pmean'd) with the kernels against the twins' backward on the same
+    forward graph (phase 7 (a)): (L2 of the difference over |twin|,
+    cosine, ms of the grads' all-reduce)."""
+    bb_w, cs_w = S.head_weights(cfg, 200)
+    names = [n for n, _ in state.model.named_parameters()]
+    params = state.params
+    ld = S.forward_losses(cfg, state, batch, bb_w, cs_w)
+    gk = list(torch.autograd.grad(ld['optimization_loss'], params,
+                                  retain_graph=True))
+    _, ar_ms = sync_ms(lambda: M.all_reduce_mean_(gk, group))
+    saved = {k: getattr(module, k) for k in twin}
+    for k, f in twin.items():
+        setattr(module, k, f)
+    try:
+        gt = list(torch.autograd.grad(ld['optimization_loss'], params))
+    finally:
+        for k, f in saved.items():
+            setattr(module, k, f)
+    M.all_reduce_mean_(gt, group)
+    l2, cos, _ = grad_distance(dict(zip(names, gk)), dict(zip(names, gt)))
+    return l2, cos, ar_ms
+
+
+def run_dp_ranks(world, backend, cards):
+    """(b) / (c): `world` spawned ranks; their results by rank."""
+    out_dir = tempfile.mkdtemp(prefix='b2m_dp_ranks_')
+    init = 'file://' + os.path.join(out_dir, 'init')
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=dp_rank, args=(r, world, backend, init,
+                                               out_dir, cards))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        errs = []
+        for r, p in enumerate(procs):
+            path = os.path.join(out_dir, f'rank{r}.err')
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs.append(f'rank {r}: {f.read()}')
+            elif p.is_alive() or p.exitcode != 0:
+                errs.append(f'rank {r}: alive {p.is_alive()}, exit code '
+                            f'{p.exitcode}')
+        if errs:
+            raise AssertionError('data-parallel ranks failed:\n'
+                                 + '\n'.join(errs))
+        res = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f'rank{r}.json')) as f:
+                res.append(json.load(f))
+        return res, time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def dp_multi_phase(tag, world, backend, cards, tbatches, smi):
+    """(b) / (c): every loss finite and equal on the ranks, the parameters
+    bit-equal across the ranks after every step, on every rank each
+    training kernel of the path launched (and on the neighbor maps
+    NMAP_STEP_LAUNCHES per step), no twin, no key / neighbor-map kernel of
+    the other path, no XLA formulation; the grads within phase 7's bounds
+    of the twins' data-parallel backward; each rank's scenes the
+    contiguous shard of phase 6's batches. Returns rank 0's launches per
+    path."""
+    res, wall = run_dp_ranks(world, backend, cards)
+    per = len(tbatches[0][1]['scene']) // world
+    for r, rr in enumerate(res):
+        want = [[scene_name(s) for s in h['scene'][r * per:(r + 1) * per]]
+                for _, h in tbatches]
+        if rr['scenes'] != want:
+            raise AssertionError(f'{tag}: rank {r} scenes {rr["scenes"]}, '
+                                 f'want {want}')
+    row = {'card': smi, 'ranks': world, 'backend': backend, 'cards': cards,
+           'wall_s': wall}
+    for path in ('key', 'nmap'):
+        rs = [rr[path] for rr in res]
+        finite = all(np.isfinite(list(l.values())).all()
+                     for r in rs for l in r['losses'])
+        same_loss = all(r['losses'] == rs[0]['losses'] for r in rs)
+        same_params = all(r['digests'] == rs[0]['digests'] for r in rs)
+        bad = []
+        for r, rr in enumerate(rs):
+            c = rr['counts']
+            others = (sum(c['key_conv_twins'].values())
+                      + sum(c['pallas_conv_twins'].values())
+                      + sum(c['xla'].values()))
+            if path == 'key':
+                ok = (min(c['key_conv'].values()) > 0
+                      and not sum(c['pallas_conv'].values()))
+            else:
+                ok = (c['pallas_conv'] == {
+                    k: v * DP_STEPS for k, v in NMAP_STEP_LAUNCHES.items()}
+                    and not sum(c['key_conv'].values()))
+            if not ok or others:
+                bad.append((r, c))
+        grads_ok = all(r['grads_l2'] <= GRAD_BWD_L2_TOL
+                       and r['grads_cos'] >= GRAD_BWD_COS_TOL for r in rs)
+        row[path] = {
+            'ms_per_step': [statistics.median(r['ms']) for r in rs],
+            'scenes_per_s': world * per * DP_STEPS / max(
+                sum(r['ms']) for r in rs) * 1e3,
+            'optimization_loss': [l['optimization_loss']
+                                  for l in rs[0]['losses']],
+            'finite': finite, 'losses_equal_on_ranks': same_loss,
+            'params_bit_equal_every_step': same_params,
+            'launches_rank0': (rs[0]['counts']['key_conv'] if path == 'key'
+                               else rs[0]['counts']['pallas_conv']),
+            'grads_vs_twins_l2': [r['grads_l2'] for r in rs],
+            'grads_vs_twins_cos': [r['grads_cos'] for r in rs],
+            'grad_allreduce_ms': [r['grad_allreduce_ms'] for r in rs],
+            'peak_GB': [r['peak_GB'] for r in rs]}
+        if not (finite and same_loss and same_params and not bad
+                and grads_ok):
+            log(f'[{tag}] ' + json.dumps(row))
+            raise AssertionError(f'{tag} {path}: finite {finite}, losses '
+                                 f'equal {same_loss}, params equal '
+                                 f'{same_params}, counts {bad}, grads '
+                                 f'{grads_ok}')
+    log(f'[{tag}] ' + json.dumps(row))
+    return {p: row[p]['launches_rank0'] for p in ('key', 'nmap')}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1885,11 +2319,13 @@ def main():
     dw_rows = dw_phase(upload(tbatches[0][0], device), g)
 
     # ---- 6. the training slice
-    state, tdev, train_launches = train_phase(tcfg, tbatches, device, smi)
+    state, tdev, train_launches, train_ms = train_phase(tcfg, tbatches,
+                                                        device, smi)
 
     # ---- 7. one step's grads: kernels vs plain twins
-    grads_phase(tcfg, state, tdev[1])
-    del state, tdev
+    del state
+    grads_phase(tcfg, replayed_state(tcfg, tdev, TRAIN_STEPS), tdev[1])
+    del tdev
     torch.cuda.empty_cache()
 
     # ---- 8. neighbor-map kernels vs plain twins, and the map build
@@ -1941,11 +2377,25 @@ def main():
 
     # ---- 13. training on the neighbor-map path
     nt_rows, nt_launches = nmap_train_phase(tbatches, device, smi)
-    del tbatches
 
     # ---- 14. training as users start it: the train CLI, warm start, the
     # Model facade and the quality gate
     cli_phase(device, smi)
+
+    # ---- 15. data-parallel training: (a) one NCCL rank bit-equal to the
+    # one-device step; (b) two gloo ranks on this card; (c) two NCCL ranks
+    # on two cards, where there are two
+    dp_ws1_phase(tcfg, tbatches, device, smi, train_ms)
+    dp_cli_check(smi)
+    dp_launches = dp_multi_phase('dp_gloo', 2, 'gloo', [0, 0], tbatches,
+                                 smi)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        dp_multi_phase('dp_nccl', 2, 'nccl', [0, 1], tbatches, smi)
+    else:
+        log(f'[dp_nccl] not run: two NCCL ranks need two cards, this '
+            f'machine has {n_cards}')
+    del tbatches
 
     kernels = []
     # bf16 rows: the ScanNet preset's activations (phase 3's launches); f32
@@ -1953,17 +2403,18 @@ def main():
     # launches; the stem takes f32 data on every preset
     f32_launches = {m: sum(ds_launches[d].get(m, 0) for d in
                            ('arkitscenes', 's3dis')) for m in FWD_MODES}
+    # dp_launches: one rank's launches over phase 15 (b)'s DP_STEPS
+    # data-parallel steps of its conv path (bf16 activations, as shipped)
     for r in rows:
-        if r['mode'] == 'stem' or r['name'].endswith('bfloat16'):
-            n = launches[r['mode']]
-        else:
-            n = f32_launches[r['mode']]
+        bf16 = r['mode'] == 'stem' or r['name'].endswith('bfloat16')
+        n = launches[r['mode']] if bf16 else f32_launches[r['mode']]
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': SRC,
             'replaces': TPU_STEM if r['mode'] == 'stem' else TPU_KERNEL,
             'launches': n, 'max_abs_err': r['max_abs_err'],
             'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
-            'bound_by': r['bound_by'], 'library_ms': None})
+            'bound_by': r['bound_by'], 'library_ms': None,
+            'dp_launches': dp_launches['key'][r['mode']] if bf16 else 0})
     for r in dw_rows:
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': SRC,
@@ -1971,7 +2422,8 @@ def main():
             'launches': train_launches[r['mode']],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
-            'bound_by': r['bound_by'], 'library_ms': None})
+            'bound_by': r['bound_by'], 'library_ms': None,
+            'dp_launches': dp_launches['key'][r['mode']]})
     for r in nm_rows:
         if r['main']:
             kernels.append({
@@ -1980,7 +2432,8 @@ def main():
                 else TPU_GATHER, 'launches': nm_launches[r['kernel']],
                 'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
-                'bound_by': r['bound_by'], 'library_ms': r['library_ms']})
+                'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
+                'dp_launches': dp_launches['nmap'][r['kernel']]})
     for r in nt_rows:               # phase 13's shapes and launches
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': NMAP_SRC,
@@ -1988,7 +2441,8 @@ def main():
             else TPU_GATHER, 'launches': nt_launches[r['kernel']],
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
-            'bound_by': r['bound_by'], 'library_ms': r['library_ms']})
+            'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
+            'dp_launches': dp_launches['nmap'][r['kernel']]})
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -40,6 +40,7 @@ from box2mask_torch.engine import evaluate as PE
 from box2mask_torch.engine import state as S
 from box2mask_torch.engine.evaluate import Evaluater
 from box2mask_torch.engine.train import Trainer
+from test_torch_train_common import remove_tmp_path  # noqa: F401
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

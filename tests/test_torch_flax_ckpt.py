@@ -50,6 +50,7 @@ from box2mask_torch.engine.optim import SLOTS
 from box2mask_torch.engine.train import Trainer, warmstart_fresh_params
 from test_torch_train_common import (ARGS, LRS, _unflat, flat, jax_batch,
                                      l2_rel, port_batch)
+from test_torch_train_common import remove_tmp_path  # noqa: F401
 
 EXTRA = ['--compute_dtype', 'float32', '--key_conv', 'off']
 

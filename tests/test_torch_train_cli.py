@@ -8,8 +8,9 @@ the `Model` facade and `python -m box2mask_torch.quality_gate`, on the CPU
     main() resumes from it at epoch 2 and takes the same losses as the
     first run's last epoch (the resume is exact on the CPU); --train_submission
     trains on train+val; --profile_dir writes a trace of steps 10-14;
-    --multigpu and --spatial_shards > 1 are refused naming their ROADMAP
-    items, and without CUDA main() raises unless asked for the CPU.
+    --spatial_shards > 1 is refused naming its ROADMAP item, and without
+    CUDA main() raises unless asked for the CPU, --multigpu too (no card
+    for its ranks; tests/test_torch_parallel.py runs it on the CPU).
   * Model against the JAX package's Model on the same weights and batch
     (--compute_dtype float32, neighbor maps: nothing rounds): get_prediction
     within 1e-5 (max) / 1e-6 (mean) of max |head| (the min_bb_size clip
@@ -50,6 +51,7 @@ from box2mask_torch.datasets import voxelize as PV
 from box2mask_torch.engine import checkpoint as ckpt
 from box2mask_torch.engine.train import Trainer
 from test_torch_train_common import ARGS, scenes
+from test_torch_train_common import remove_tmp_path  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE = ['--config', os.path.join(ROOT, 'configs', 'synthetic.txt'),
@@ -88,13 +90,13 @@ def test_train_cli_checkpoint_resume_and_train_val(tmp_path, monkeypatch,
 def test_train_cli_refuses_and_needs_the_card_or_cpu(tmp_path, monkeypatch):
     monkeypatch.setenv('BOX2MASK_EXP_ROOT', str(tmp_path))
     monkeypatch.delenv('BOX2MASK_PLATFORM', raising=False)
-    for flags, item in ((['--multigpu'], 'A11'),
-                        (['--spatial_shards', '2'], 'A13')):
-        with pytest.raises(NotImplementedError, match=item):
-            train_cli.main(RECIPE + flags)
+    with pytest.raises(NotImplementedError, match='A13'):
+        train_cli.main(RECIPE + ['--spatial_shards', '2'])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             train_cli.main(RECIPE)
+        with pytest.raises(RuntimeError, match='CUDA cards'):
+            train_cli.main(RECIPE + ['--multigpu'])
         ids, _, _, is_fg = PT.get_tables('scannet')
         with pytest.raises(RuntimeError, match='CUDA'):
             PM.Model(PC.get_config(RECIPE), ids,

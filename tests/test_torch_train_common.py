@@ -7,10 +7,13 @@ the CPU its Pallas kernels run only in interpret mode, far too slowly for a
 whole network, and the neighbor-map path computes the same function.
 """
 
+import shutil
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import optax
+import pytest
 import torch
 
 from box2mask_tpu import config as JC
@@ -29,7 +32,7 @@ from box2mask_torch.datasets import synthetic as PSyn
 from box2mask_torch.datasets import tables as PT
 from box2mask_torch.datasets import voxelize as PV
 from box2mask_torch.engine import state as S
-from box2mask_torch.sparse import key_conv as KC
+from test_torch_parallel_common import patch_unrounded
 
 ARGS = ['--dataset_name', 'synthetic', '--network_heads', 'mlp_offsets',
         'mlp_bounds', 'mlp_bb_scores', 'mlp_semantics',
@@ -132,18 +135,7 @@ def port_run(extra, init, n_steps, bb_w=1.0, cs_w=0.0, unrounded=False,
     `monkeypatch`); `feature_noise` multiplies the input
     features by 1 + feature_noise * N(0, 1) (seeded)."""
     if unrounded:
-        f32 = dict(operand_dtype=torch.float32)
-        monkeypatch.setattr(KC, 'SAVED_X_DTYPE', torch.float32)
-        monkeypatch.setattr(KC, 'key_conv', lambda x, kin, kout, w, **kw: (
-            KC.key_conv_plain(x, kin, kout, w, **f32, **kw)))
-        monkeypatch.setattr(KC, 'key_conv_stem', lambda x, kin, w: (
-            KC.key_conv_plain(x, kin, kin.reshape(-1), w, kernel_size=5,
-                              out_dtype=torch.float32, **f32)))
-        monkeypatch.setattr(KC, 'key_conv_dw', lambda x, g, kin, kout, **kw: (
-            KC.key_conv_dw_plain(x, g, kin, kout, **f32, **kw)))
-        monkeypatch.setattr(KC, 'key_conv_stem_dw', lambda x, g, kin: (
-            KC.key_conv_dw_plain(x, g, kin, kin.reshape(-1), kernel_size=5,
-                                 **f32)))
+        patch_unrounded(monkeypatch.setattr)
     pc, dev = port_batch(extra)
     if feature_noise:
         eps = np.random.default_rng(0).standard_normal(
@@ -213,3 +205,13 @@ LOSS_KEYS = ('optimization_loss', 'offset_loss', 'bounds_loss',
 # threads slow each other down: the two train-step files took ~785 s each
 # side by side against ~47 s alone (8 cores); at 2 threads, ~60 s.
 torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
+@pytest.fixture(autouse=True)
+def remove_tmp_path(tmp_path):
+    """Removes the test's tmp_path when the test ends, passed or failed.
+    Autouse in each module that imports it: the modules whose tests write
+    checkpoints (~0.5 GB each at full width), which pytest would otherwise
+    keep for its last three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)

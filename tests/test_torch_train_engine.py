@@ -25,6 +25,7 @@ from box2mask_torch.engine.optim import Optimizer
 from box2mask_torch.engine.train import Trainer
 from box2mask_torch.nn import losses as PL
 from test_torch_train_common import ARGS, port_batch
+from test_torch_train_common import remove_tmp_path  # noqa: F401
 
 LOSS_ARGS = ['--network_heads', 'mlp_offsets', 'mlp_bounds', 'mlp_bb_scores',
              'mlp_semantics', 'mlp_center_scores', 'mlp_per_vox_semantics',
