@@ -113,7 +113,11 @@ def config_parser():
     # modes the port's evaluate CLI refuses, naming the ROADMAP item
     add('--produce_visualizations', default=False, action='store_true')
     add('--predict_specific_scene', type=str, default=None)
+    # spatial sharding (parallel/spatial.py): one scene's U-Net split over
+    # this many ranks, levels < --spatial_gather_level sharded with
+    # halo-exchanged convs, the coarser levels replicated; 0 / 1 = off
     add('--spatial_shards', type=int, default=0)
+    add('--spatial_gather_level', type=int, default=3)
     add('--use_native_host_ops', default=True, action='store_true',
         help='the C host library (native/) for voxelization and the eval '
              'mask unpack; raises when it cannot be built')

@@ -204,11 +204,11 @@ def write_scannet(root, names, n_vertices=150_000, n_objects=12, seed=0,
 
 
 def write_arkitscenes(root, names, split='Validation', n_vertices=300_000,
-                      n_objects=10, seed=0):
+                      n_objects=10, seed=0, size=(8.0, 7.0, 2.6)):
     """ARKitScenes scenes (ids starting with 4) of one split ('Training'
-    or 'Validation') under root: the mesh, its oriented-box annotations of
-    the objects (walls and floor are not annotated, as in the dataset) and
-    its segments."""
+    or 'Validation') under root: the mesh of a room of `size` (x, y, z
+    metres), its oriented-box annotations of the objects (walls and floor
+    are not annotated, as in the dataset) and its segments."""
     rng = np.random.default_rng(seed)
     seg_dir = os.path.join(root, '3dod', {'Training': 'segmented_train_clean',
                                           'Validation': 'segmented_val_clean'
@@ -217,8 +217,8 @@ def write_arkitscenes(root, names, split='Validation', n_vertices=300_000,
     for name in names:
         d = os.path.join(root, '3dod', split, name)
         os.makedirs(d, exist_ok=True)
-        mesh, parts = make_room(rng, n_vertices, n_objects,
-                                size=(8.0, 7.0, 2.6), yaw=True)
+        mesh, parts = make_room(rng, n_vertices, n_objects, size=size,
+                                yaw=True)
         write_ply_mesh(os.path.join(d, f'{name}_3dod_mesh.ply'),
                        mesh['positions'], mesh['faces'], mesh['colors'])
         _segments_json(os.path.join(seg_dir, f'{name}_3dod_mesh.0.010000.'

@@ -1,6 +1,6 @@
 """Dataset classes + prefetching batch loader (the port's copy of
 box2mask_tpu/datasets/loader.py; data-parallel shards as in its
-num_shards).
+num_shards; one scene split over ranks under --spatial_shards).
 
 The loader is a thread-pool prefetcher feeding padded host batches: the
 per-scene work is vectorized NumPy (it releases the GIL), and batches are
@@ -34,11 +34,14 @@ from box2mask_torch.sparse.coords import round_up
 
 def scene_rng(cfg, scene_name, epoch=0):
     """Per-scene RandomState stream: deterministic under --fixed_seed (varying
-    with scene name + epoch so TTA eval and training epochs differ), fresh
-    OS-entropy otherwise."""
-    if cfg.fixed_seed is None:
+    with scene name + epoch so TTA eval and training epochs differ), else
+    under `cfg.augment_seed` alike, the seed the ranks of a run share
+    (parallel/mesh.agree_seeds sets it), fresh OS-entropy without either."""
+    seed = (cfg.fixed_seed if cfg.fixed_seed is not None
+            else getattr(cfg, 'augment_seed', None))
+    if seed is None:
         return np.random.RandomState()
-    h = np.uint32(cfg.fixed_seed)
+    h = np.uint32(seed)
     with np.errstate(over='ignore'):          # the hash wraps mod 2^32
         for c in f'{scene_name}|{epoch}':
             h = np.uint32(h * np.uint32(31) + np.uint32(ord(c)))
@@ -241,6 +244,8 @@ class BatchLoader:
         if self.shard is not None:
             indices = indices[self.shard * per:(self.shard + 1) * per]
         rets = list(self._pool.map(self.dataset.__getitem__, indices))
+        if self.cfg.spatial_shards > 1:
+            return self._build_spatial(rets)
         build = functools.partial(build_batch, cfg=self.cfg,
                                   sem_id2idx=self.dataset.sem_id2idx,
                                   mode=self.dataset.mode)
@@ -258,6 +263,29 @@ class BatchLoader:
         pads = common_level_pads(rets, self.cfg.vox_bucket)
         return [build(ch, device_maps=True, level_pads=pads, seg_pad=seg_pad)
                 for ch in chunks]
+
+    def _build_spatial(self, rets):
+        """One scene split over --spatial_shards ranks (JAX loader.py:
+        233-254): every rank builds the whole host batch and uploads its
+        own shard (parallel/spatial.local_batch); the host dict carries
+        the shard plan in 'spatial_meta'. Key operands on the port's
+        key-route rule (datasets/batching.py)."""
+        from box2mask_torch.parallel.spatial import build_spatial_unet_batch
+        if len(rets) != 1:
+            raise ValueError('spatial sharding takes one scene per step')
+        ret, cfg = rets[0], self.cfg
+        use_kc = cfg.key_conv == 'on' or (cfg.key_conv == 'eval'
+                                          and self.dataset.mode != 'train')
+        dev, meta = build_spatial_unet_batch(
+            ret, cfg.spatial_shards, gather_level=cfg.spatial_gather_level,
+            sem_id2idx=self.dataset.sem_id2idx, key_conv=use_kc)
+        host = {'scene': [ret['scene']], 'labels': [ret.get('labels')],
+                'num_voxels': [len(ret['vox_coords'])],
+                'vox2point': [ret['vox2point']],
+                'seg2vox': [ret.get('seg2vox')],
+                'input_location': [ret['input_location']],
+                'spatial_meta': meta}
+        return dev, host
 
     def steps(self):
         """The index groups of one pass, in order: batch_size scenes (x

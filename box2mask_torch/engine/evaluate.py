@@ -17,8 +17,15 @@ the per-voxel semantics head are configured: the fused post-processing
 reads the semantics head, which the shipped S3DIS presets do not have (the
 JAX package sends them down the fused path all the same, and raises
 KeyError there); they take the non-fused route with the host oracle, the
-route the JAX package takes off the TPU. Spatially sharded evaluation is
-not ported yet and raises NotImplementedError naming ROADMAP A13.
+route the JAX package takes off the TPU.
+
+Spatially sharded (--spatial_shards D, :222-307, :398-410): ScanNet,
+synthetic and ARKitScenes scenes are evaluated one at a time, each split
+over the D ranks of a process group (parallel/spatial.py; the evaluate CLI
+spawns them), every rank running its slab of the forward; rank 0 runs the
+post-processing on the replicated segment-level heads and the protocol.
+S3DIS stays off this path, as in the JAX package, and so do the submission
+write-out and the param search, which run on one device there too.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import uuid
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.spatial import ConvexHull, cKDTree
 
 from box2mask_torch.datasets import s3dis as s3dis_reader
@@ -41,9 +49,11 @@ from box2mask_torch.engine import state as S
 from box2mask_torch.engine.infer import FusedInferencePipeline, upload
 from box2mask_torch.metrics import box3d, detection_ap, s3dis_metrics
 from box2mask_torch.metrics import scannet_ap
+from box2mask_torch.parallel import spatial as SP
 from box2mask_torch.postprocess.detection2mask import detection_to_masks
 from box2mask_torch.postprocess.device_post import (
-    device_masks_to_results, make_device_postproc, stacked_masks_to_results)
+    MAX_MASKS, device_masks_to_results, make_core, make_device_postproc,
+    stacked_masks_to_results, warn_cap)
 from box2mask_torch.postprocess.s3dis_background import (
     assign_semantics_to_proposals, clustering_for_background)
 from box2mask_torch.runtime import resolve_device
@@ -52,6 +62,8 @@ TOP_K = 128                     # rows per scene in the stacked readback
 # the batch arrays a raw-prediction entry keeps for the post-processing
 KEEP = ('num_segments', 'input_location', 'batch_ids', 'batch0', 'num0',
         'seg_valid', 'valid0', 'pooling_ids')
+# the datasets whose evaluation --spatial_shards splits over ranks
+SPATIAL_DATASETS = ('scannet', 'synthetic', 'arkitscenes')
 
 
 class Evaluater:
@@ -60,7 +72,7 @@ class Evaluater:
     the experiment's checkpoint at first use."""
 
     def __init__(self, cfg, state=None, writer=None, epoch=None,
-                 device=None):
+                 device=None, rank=0, world_size=1, group=None):
         self.cfg = cfg
         self.writer = writer
         self.epoch = epoch
@@ -73,21 +85,35 @@ class Evaluater:
         self.ckpt_name = 'untrained'
         self._needs_restore = state is None
         self.results_path = None
+        self.rank, self.world_size = rank, world_size
+        self.group = group if world_size > 1 else None
+        self.spatial = (cfg.spatial_shards > 1
+                        and cfg.dataset_name in SPATIAL_DATASETS)
 
     # ------------------------------------------------------------ state mgmt
-    def _ensure_state(self):
+    def _ensure_state(self, spatial=False):
         """Build the model and restore the checkpoint once (the JAX
-        package's _ensure_state and _ensure_state_from_dataset: the port
-        needs no sample batch to build it), and make the results folder.
-        Every entry point that runs the model passes here, so spatially
-        sharded evaluation is refused here."""
+        package's _ensure_state, _ensure_state_from_dataset and, with
+        `spatial`, _ensure_state_spatial: the port needs no sample batch to
+        build it), and make the results folder. Every entry point that runs
+        the model passes here; under --spatial_shards the submission
+        write-out and the param search run the one-device net, as the JAX
+        package's do."""
         cfg = self.cfg
-        if cfg.spatial_shards > 1:
-            raise NotImplementedError('spatially sharded evaluation is not '
-                                      'ported to box2mask_torch yet (ROADMAP '
-                                      'A13)')
-        if self.state is None:
-            model = S.build_model(cfg, len(self.valid_class_ids), self.device)
+        if spatial and (self.group is None or dist.get_world_size(
+                self.group) != cfg.spatial_shards):
+            raise RuntimeError(
+                f'--spatial_shards {cfg.spatial_shards} evaluates on a '
+                f'process group of {cfg.spatial_shards} ranks (python -m '
+                'box2mask_torch.evaluate spawns them)')
+        if self.state is None and spatial:
+            self.state = SP.make_spatial_init(
+                cfg, SP.build_spatial_model(cfg, len(self.valid_class_ids),
+                                            self.device, self.group),
+                self.group, seed=cfg.fixed_seed or 0)
+        elif self.state is None:
+            model = S.build_model(cfg, len(self.valid_class_ids),
+                                  self.device)
             self.state = S.init_state(cfg, model, S.make_optimizer(cfg),
                                       seed=cfg.fixed_seed or 0)
         if self._needs_restore:
@@ -96,10 +122,12 @@ class Evaluater:
             if path is not None and os.path.exists(path):
                 (self.state, _, _, _, self.ckpt_name) = ckpt.load_checkpoint(
                     path, self.state, strict=not cfg.loose_model_loading)
-                print(f'Loaded checkpoint: {self.ckpt_name}')
+                msg = f'Loaded checkpoint: {self.ckpt_name}'
             else:
-                print(f'No checkpoint at {cfg.checkpoint_path}; '
-                      'evaluating the untrained model')
+                msg = (f'No checkpoint at {cfg.checkpoint_path}; '
+                       'evaluating the untrained model')
+            if self.rank == 0:
+                print(msg)
             self._needs_restore = False
         if self.results_path is None:
             self.results_path = os.path.join(cfg.exp_path, 'results',
@@ -271,8 +299,87 @@ class Evaluater:
         for si, s in enumerate(host['scene']):
             self._vox_sem[s['name']] = np.asarray(out_np['vox_sem'][si])
 
+    # ------------------------------------------------- sharded (spatial) eval
+    def _spatial_model(self):
+        """The state's model as a SpatialSelectionNet over the group (a
+        one-device SelectionNet's weights are copied into one: the
+        parameters are the same)."""
+        model = self.state.model
+        if isinstance(model, SP.SpatialSelectionNet):
+            return model
+        if getattr(self, '_sp_model', None) is None:
+            self._sp_model = SP.build_spatial_model(
+                self.cfg, len(self.valid_class_ids), self.device, self.group)
+        self._sp_model.load_state_dict(model.state_dict())
+        return self._sp_model
+
+    def spatial_dataset_results(self, dataset):
+        """Sharded evaluation (JAX :222-307): each scene's forward split
+        over the group's ranks (parallel/spatial.py), so a scene too large
+        for one device evaluates at full resolution. The post-processing
+        reads the replicated segment-level heads, so rank 0 runs it
+        unsharded over the whole scene's (key-sorted) voxel rows: the
+        vote -> mask pipeline is per segment and a mask's IoU does not
+        depend on the voxel order. Returns (results, light_entries) as
+        fused_dataset_results does, on rank 0; ({}, []) elsewhere."""
+        self._ensure_state(spatial=True)
+        cfg = self.cfg
+        model = self._spatial_model()
+        fwd = SP.make_spatial_apply(model)
+        if not hasattr(self, '_spatial_core'):
+            self._spatial_core = make_core(cfg, self.valid_class_ids,
+                                           self.is_foreground, MAX_MASKS)
+        ths = torch.as_tensor(np.asarray(cfg.eval_ths, np.float32),
+                              device=self.device)
+        loader = dataset.get_loader(shuffle=False, drop_last=False,
+                                    batch_size=1)
+        results, entries = {}, []
+        for dev_np, host in loader:
+            SP.check_same_scene(dev_np, self.group, self.device)
+            pred = fwd(SP.local_batch(dev_np, self.rank, self.device))
+            if self.rank != 0:
+                continue
+            # a one-scene batch over the whole scene's voxel rows, every
+            # shard's slab back to back
+            valid0 = dev_np['sp_valid0'].reshape(-1)
+            flat = upload({
+                'pooling_ids': dev_np['sp_pool'].reshape(-1),
+                'valid0': valid0,
+                'batch0': np.where(valid0, 0, -1).astype(np.int32),
+                'input_location': dev_np['input_location'],
+                'seg_valid': dev_np['seg_valid'],
+                'batch_ids': dev_np['batch_ids']}, self.device)
+            with torch.no_grad():
+                out = self._spatial_core(pred, flat, 0, ths)
+            warn_cap(host, 0, out['cluster_cap_hit'])
+            n = int(out['n_keep'])
+            segm = out['seg_masks'][:n].cpu().numpy()       # (n, S_pad)
+            # segment-level masks -> point masks (the scene's point order):
+            # a point's segment is seg2vox[vox2point]
+            seg_of_point = np.asarray(host['seg2vox'][0])[
+                np.asarray(host['vox2point'][0])]
+            name = host['scene'][0]['name']
+            label_id = np.asarray(self.valid_class_ids)[
+                out['label_idx'][:n].cpu().numpy()]
+            results[name] = {
+                'conf': out['conf'][:n].cpu().numpy(),
+                'label_id': label_id.astype(np.int32),
+                'mask': segm[:, seg_of_point] if n else
+                np.zeros((0, len(seg_of_point)), bool)}
+            entries.append((None, None, host))
+            print(f'predicted {name} (spatial x{cfg.spatial_shards})')
+        return results, entries
+
     # ------------------------------------------------------------------ eval
     def eval(self, dataset, write_to_tb=None):
+        if self.spatial:
+            results, entries = self.spatial_dataset_results(dataset)
+            if self.rank != 0:
+                return None
+            if self.cfg.dataset_name == 'arkitscenes':
+                return self.arkitscenes_eval(results, entries)
+            return self.scannet_eval(results, entries,
+                                     write_to_tb=write_to_tb)
         if not self._use_fused():          # S3DIS without the semantics head
             return self.s3dis_eval(self.load_or_predict(dataset))
         results, entries = self.fused_dataset_results(dataset)

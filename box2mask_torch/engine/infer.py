@@ -17,7 +17,8 @@ import torch
 
 from box2mask_torch.engine import state as S
 from box2mask_torch.postprocess.device_post import (
-    fused_postproc, make_core, make_device_postproc, stacked_masks_to_results)
+    MAX_MASKS, fused_postproc, make_core, make_device_postproc,
+    stacked_masks_to_results)
 from box2mask_torch.runtime import resolve_device
 
 DEPTH = 2
@@ -41,7 +42,7 @@ class FusedInferencePipeline:
     label_id, mask}} (point-level masks in eval mode)."""
 
     def __init__(self, cfg, valid_class_ids, is_foreground, model=None,
-                 top_k=128, max_masks=256, device=None):
+                 top_k=128, max_masks=MAX_MASKS, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.valid_class_ids = valid_class_ids

@@ -18,7 +18,14 @@ with the group (SyncBN) and its steps those of parallel/mesh.py. Every rank
 initialises, resumes, then takes rank 0's state (broadcast_state). Rank 0
 alone writes the checkpoints, the validation loss, the full evaluation, the
 scalars, the prints and the profiler trace, each followed by a barrier.
-Not in this slice: spatially sharded training (ROADMAP A13).
+
+Spatially sharded (--spatial_shards D, JAX engine/train.py:56-75, :134-153):
+D Trainers, one per rank, each on every scene of the loader (one a step),
+uploading its own slab of it (parallel/spatial.local_batch), its model a
+SpatialSelectionNet (the SelectionNet parameters, so the checkpoints are
+one device's) and its steps make_spatial_train_step; no auto-remat. The
+validation loss and the full evaluation run their sharded forwards on
+every rank; rank 0 alone writes, logs and prints.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from box2mask_torch.engine.evaluate import Evaluater
 from box2mask_torch.engine.infer import upload
 from box2mask_torch.engine.schedule import lr_for_epoch
 from box2mask_torch.parallel import mesh as M
+from box2mask_torch.parallel import spatial as SP
 from box2mask_torch.runtime import resolve_device
 
 
@@ -109,7 +117,14 @@ class Trainer:
         valid_ids, _, _, _ = get_tables(train_dataset.table_name)
         self.num_classes = num_classes or len(valid_ids)
         self.tx = S.make_optimizer(cfg)
-        if self.group is not None:
+        self.spatial = cfg.spatial_shards > 1
+        if self.spatial and world_size != cfg.spatial_shards:
+            raise ValueError(f'--spatial_shards {cfg.spatial_shards} trains '
+                             f'on as many ranks, not {world_size}')
+        if self.spatial:
+            self.train_step = SP.make_spatial_train_step(cfg, self.group)
+            self.train_loader = train_dataset.get_loader()
+        elif self.group is not None:
             self.train_step = M.make_parallel_train_step(cfg, self.group)
             self.train_loader = train_dataset.get_loader(
                 num_shards=world_size, shard=rank)
@@ -117,11 +132,14 @@ class Trainer:
             self.train_step = S.make_train_step(cfg)
             self.train_loader = train_dataset.get_loader()
         # the validation loss runs on rank 0 alone, unsharded (BN on the
-        # running statistics: no collective), as the JAX Trainer's
-        self.val_step = S.make_val_step(cfg)
+        # running statistics: no collective), as the JAX Trainer's; a
+        # spatially sharded forward runs on every rank
+        self.val_step = (SP.make_spatial_val_step(cfg, self.group)
+                         if self.spatial else S.make_val_step(cfg))
         self.val_loader = val_dataset.get_loader(
             shuffle=True, drop_last=False) if (
-                val_dataset is not None and self.main) else None
+                val_dataset is not None
+                and (self.main or self.spatial)) else None
 
         # experiment dir + provenance
         os.makedirs(cfg.checkpoint_path, exist_ok=True)
@@ -148,6 +166,14 @@ class Trainer:
         if self.main:
             print(text, flush=True)
 
+    def upload(self, dev_np):
+        """A host batch on the rank's device (under spatial sharding its
+        slab, once every rank is known to hold the same scene)."""
+        if self.spatial:
+            SP.check_same_scene(dev_np, self.group, self.device)
+            return SP.local_batch(dev_np, self.rank, self.device)
+        return upload(dev_np, self.device)
+
     def barrier(self):
         """All ranks wait here (after work of rank 0 alone)."""
         if self.group is not None:
@@ -158,6 +184,12 @@ class Trainer:
         if self.state is not None:
             return
         cfg = self.cfg
+        if self.spatial:
+            # the JAX Trainer has no auto-remat under spatial sharding, and
+            # the spatial net no remat
+            self._init_state(SP.build_spatial_model(
+                cfg, self.num_classes, self.device, group=self.group))
+            return
         # the first real batch's half of the auto-remat rule (config
         # .needs_remat): flip remat from the padded row count, which
         # get_config cannot know for configs that leave vox_bucket small.
@@ -168,9 +200,8 @@ class Trainer:
         rows = int(sample_batch['valid0'].shape[0])
         if self.group is not None:
             r = torch.tensor([rows], dtype=torch.int64,
-                             device=M.collective_device(self.group,
-                                                         sample_batch[
-                                                             'valid0']))
+                             device=M.collective_device(
+                                 self.group, sample_batch['valid0'].device))
             dist.all_reduce(r, op=dist.ReduceOp.MAX, group=self.group)
             rows = int(r.item())
         if (not cfg.remat and not cfg.no_auto_remat
@@ -180,10 +211,14 @@ class Trainer:
             self.say(f'auto-remat: {rows} padded rows/step is past the '
                      'memory rule without block remat (--no_auto_remat to '
                      'override)')
-        model = S.build_model(cfg, self.num_classes, self.device,
-                              group=self.group)
-        self.state = S.init_state(cfg, model, self.tx,
-                                  seed=cfg.fixed_seed or 0)
+        self._init_state(S.build_model(cfg, self.num_classes, self.device,
+                                       group=self.group))
+
+    def _init_state(self, model):
+        """Seeded weights, the resume, and across ranks rank 0's state and
+        counts on every rank."""
+        self.state = S.init_state(self.cfg, model, self.tx,
+                                  seed=self.cfg.fixed_seed or 0)
         self._resume()
         if self.group is not None:
             M.broadcast_state(self.state, self.group)
@@ -195,7 +230,7 @@ class Trainer:
         c = torch.tensor([self.training_time, self.iteration_num,
                           self.start_epoch], dtype=torch.float64,
                          device=M.collective_device(
-                             self.group, self.state.params[0]))
+                             self.group, self.state.params[0].device))
         dist.broadcast(c, 0, group=self.group)
         t, it, ep = c.tolist()
         return t, int(it), int(ep)
@@ -239,8 +274,7 @@ class Trainer:
         for i, (dev_np, _host) in enumerate(self.val_loader):
             if i >= self.cfg.num_eval_batches:
                 break
-            ld = self.val_step(self.state, upload(dev_np, self.device), bb_w,
-                               cs_w)
+            ld = self.val_step(self.state, self.upload(dev_np), bb_w, cs_w)
             for k, v in ld.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
             n += 1
@@ -258,7 +292,7 @@ class Trainer:
             # checkpoint's epoch.
             self.train_loader.set_epoch(self.start_epoch)
             dev_np, _ = next(iter(self.train_loader))
-            self._ensure_state(upload(dev_np, self.device))
+            self._ensure_state(self.upload(dev_np))
         for epoch in range(self.start_epoch, epochs):
             self.train_loader.set_epoch(epoch)
             lr = lr_for_epoch(cfg, epoch)
@@ -268,13 +302,13 @@ class Trainer:
 
             for batch_num, (dev_np, _host) in enumerate(self.train_loader):
                 t0 = time.time()
-                batch = upload(dev_np, self.device)
+                batch = self.upload(dev_np)
                 prep_time = time.time() - t0
 
                 # epoch-head block (reference training.py:99-152)
                 if batch_num == 0 and not (
                         epoch == self.start_epoch and cfg.skip_first_eval):
-                    if self.main:
+                    if self.main or self.spatial:
                         self._epoch_head(epoch)
                     self.barrier()
 
@@ -311,7 +345,7 @@ class Trainer:
 
     def _epoch_head(self, epoch):
         cfg = self.cfg
-        if epoch % cfg.ckpt_every == 0:
+        if epoch % cfg.ckpt_every == 0 and self.main:
             t0 = time.time()
             path = ckpt.save_checkpoint(cfg.checkpoint_path, self.state,
                                         self.training_time, epoch,
@@ -322,7 +356,7 @@ class Trainer:
             val = self.compute_val_loss(epoch)
             if val:
                 self.log(epoch=epoch, **{f'val/{k}': v for k, v in val.items()})
-                if val['optimization_loss'] < self.val_min:
+                if val['optimization_loss'] < self.val_min and self.main:
                     self.val_min = val['optimization_loss']
                     ckpt.write_val_min_marker(cfg.exp_path, self.val_min)
         if (epoch % cfg.eval_every == 0 and epoch >= 250 and cfg.full_model
@@ -335,7 +369,8 @@ class Trainer:
         traceback on stderr and a `val/full_eval_failed` scalar."""
         try:
             ev = Evaluater(self.cfg, state=self.state, writer=self.metrics,
-                           epoch=epoch)
+                           epoch=epoch, rank=self.rank,
+                           world_size=self.world_size, group=self.group)
             ev.eval(get_dataset(self.cfg, 'val',
                                 do_augmentations=not self.cfg.eval_wo_aug))
         except (KeyboardInterrupt, SystemExit):

@@ -31,13 +31,22 @@ from __future__ import annotations
 
 import datetime
 import hashlib
+import os
+import shutil
+import tempfile
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from box2mask_torch.engine import state as S
 
 AXIS = 'data'
+# bound on every collective and barrier of a run of ranks that the train
+# and evaluate CLIs spawn: the other ranks wait at a barrier while rank 0
+# writes a checkpoint, runs the full evaluation of the val set or a
+# scene's post-processing and the protocol
+RANKS_TIMEOUT_S = 7200.0
 
 
 def init_data_parallel(rank, world_size, backend='nccl', init_method=None,
@@ -63,6 +72,78 @@ def teardown():
         dist.destroy_process_group()
 
 
+def ranks_backend(world, platform, flag):
+    """The backend of a run of `world` ranks: gloo on the CPU (`platform`
+    'cpu'), else NCCL with one card per rank, raising when the machine has
+    fewer cards (`flag` names the option that asked for the ranks)."""
+    if platform == 'cpu':
+        return 'gloo'
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if world < 1 or world > cards:
+        raise RuntimeError(f'{flag} asks for {world} ranks, one per card, '
+                           f'and {cards} CUDA cards are available; set '
+                           'BOX2MASK_PLATFORM=cpu to run the ranks on the '
+                           'CPU')
+    return 'nccl'
+
+
+def rank_device(rank, world, platform):
+    """Rank `rank`'s device: cuda:rank, or the CPU when `platform` is 'cpu',
+    where the ranks share the cores: each takes its share, or fewer where
+    OMP_NUM_THREADS asks for fewer (torch's default reads it)."""
+    if platform != 'cpu':
+        return torch.device('cuda', rank)
+    torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                     (os.cpu_count() or 1) // world)))
+    return torch.device('cpu')
+
+
+def spawn_ranks(worker, world, backend, *args):
+    """Run worker(rank, world, backend, init_method, *args) in `world`
+    spawned processes joined by a file rendezvous, and wait for them; a
+    rank that fails ends the run with its error. `worker` pickles by
+    import path."""
+    rendezvous = tempfile.mkdtemp(prefix='box2mask_ranks_')
+    try:
+        mp.start_processes(
+            worker, args=(world, backend, 'file://' + os.path.join(
+                rendezvous, 'init')) + args,
+            nprocs=world, join=True, start_method='spawn')
+    finally:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def agree_seeds(cfg, group, device):
+    """Every rank of `group` takes rank 0's seeds, so that the ranks of one
+    run draw its randomness alike: --fixed_seed (each rank's get_config
+    draws its own under --sample_fixed_seed; the shuffle and the initial
+    weights read it) and, where there is none, `cfg.augment_seed`, drawn
+    on rank 0, which seeds each scene's augmentation in its place
+    (datasets/loader.scene_rng). A spatially sharded scene must be the
+    same scene on every rank; data-parallel ranks must shuffle alike."""
+    seeds = torch.tensor(
+        [-1 if cfg.fixed_seed is None else cfg.fixed_seed,
+         int.from_bytes(os.urandom(4), byteorder='big')], dtype=torch.int64,
+        device=collective_device(group, device))
+    dist.broadcast(seeds, 0, group=group)
+    fixed, augment = (int(s) for s in seeds.tolist())
+    cfg.fixed_seed = None if fixed < 0 else fixed
+    cfg.augment_seed = augment if cfg.fixed_seed is None else None
+    return cfg
+
+
+def same_on_every_rank(value, group, device, what):
+    """Raise unless the int `value` (a digest, < 2^63) is the same on every
+    rank of `group`; `what` names it in the error."""
+    lo = torch.tensor([value], dtype=torch.int64,
+                      device=collective_device(group, device))
+    hi = lo.clone()
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    if lo.item() != hi.item():
+        raise RuntimeError(f'the ranks hold different {what}')
+
+
 def _flat_tensors(state):
     """Every tensor a rank holds of the train state: parameters, BN
     buffers, optimizer moments."""
@@ -74,11 +155,11 @@ def _flat_tensors(state):
     return out
 
 
-def collective_device(group, like):
-    """Where a small host-side value travels: the card under NCCL, the
-    CPU under gloo."""
+def collective_device(group, device):
+    """Where a small host-side value travels: the rank's card `device`
+    under NCCL, the CPU under gloo."""
     if dist.get_backend(group) == 'nccl':
-        return like.device
+        return torch.device(device)
     return torch.device('cpu')
 
 
@@ -97,7 +178,7 @@ def broadcast_state(state, group, src=0):
             off += t.numel()
     counts = torch.tensor([state.step, state.opt_state['count']],
                           dtype=torch.int64,
-                          device=collective_device(group, flat))
+                          device=collective_device(group, flat.device))
     dist.broadcast(counts, src, group=group)
     state.step, state.opt_state['count'] = (int(c) for c in counts.tolist())
     return state
@@ -173,12 +254,5 @@ def replica_digest(state):
 def check_replicas(state, group):
     """Raise unless every rank of `group` holds the same parameters and BN
     buffers, bit for bit."""
-    d = replica_digest(state)
-    like = next(state.model.parameters())
-    lo = torch.tensor([d], dtype=torch.int64,
-                      device=collective_device(group, like))
-    hi = lo.clone()
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
-    if lo.item() != hi.item():
-        raise RuntimeError('data-parallel ranks hold different parameters')
+    same_on_every_rank(replica_digest(state), group,
+                       next(state.model.parameters()).device, 'parameters')

@@ -33,6 +33,9 @@ import torch
 from box2mask_torch.native import native_unpack_masks
 from box2mask_torch.postprocess.nms import SYNC_EVERY, nms_clustering
 
+# the evaluation's static bound on the masks NMS clustering keeps per scene
+MAX_MASKS = 256
+
 
 def pack_bits(masks):
     """(R, V) bool -> (R, V // 8) uint8, little-endian bit order."""
@@ -129,7 +132,8 @@ def make_core(cfg, valid_class_ids, is_foreground, max_masks):
     return core
 
 
-def make_device_postproc(cfg, valid_class_ids, is_foreground, max_masks=256):
+def make_device_postproc(cfg, valid_class_ids, is_foreground,
+                         max_masks=MAX_MASKS):
     """fn(pred, batch, scene_idx, ths) -> compact full-width result dict
     (masks bit-packed over the whole voxel axis)."""
     core = make_core(cfg, valid_class_ids, is_foreground, max_masks)
@@ -196,7 +200,7 @@ def _result(conf, label_idx, masks, valid_class_ids):
     return {'conf': conf, 'label_id': label_id, 'mask': masks}
 
 
-def _warn_cap(host, scene_idx, cap_hit):
+def warn_cap(host, scene_idx, cap_hit):
     if bool(cap_hit):
         warnings.warn(
             f"scene {host['scene'][scene_idx]['name']}: NMS clustering hit "
@@ -219,7 +223,7 @@ def stacked_masks_to_results(out_np, host, valid_class_ids,
         [[0], np.cumsum([len(il) for il in host['input_location']])])
     for si, scene in enumerate(host['scene']):
         n = int(out_np['n_keep'][si])
-        _warn_cap(host, si, out_np['cluster_cap_hit'][si])
+        warn_cap(host, si, out_np['cluster_cap_hit'][si])
         cap = out_np[packed_key].shape[1]
         if n > cap:
             if post_fallback is None or pred is None:
@@ -254,7 +258,7 @@ def device_masks_to_results(out, host, valid_class_ids, scene_idx,
     into the detection_to_masks result dict, masks over the scene's points."""
     out = {k: v.cpu().numpy() for k, v in out.items()}
     n = int(out['n_keep'])
-    _warn_cap(host, scene_idx, out['cluster_cap_hit'])
+    warn_cap(host, scene_idx, out['cluster_cap_hit'])
     if 'interleaved_vs' in host:                 # key-pyramid layout
         start = scene_idx * host['interleaved_vs']
     else:                                        # host maps: tail-padded

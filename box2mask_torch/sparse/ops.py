@@ -73,7 +73,11 @@ def gather_conv(x, nbr, w, compute_dtype=torch.bfloat16, use_pallas=False):
     w through the key_conv autograd Functions, train and eval alike) or a
     neighbor map nbr (Vout, K) int32 whose entries == x.shape[0] mark a
     missing neighbor (f32 out; differentiable through SparseConvFn or the
-    XLA formulation's torch ops)."""
+    XLA formulation's torch ops). A callable nbr is a spatially sharded
+    operand (parallel/spatial.py): it runs its halo exchange and its conv,
+    nbr(x, w, compute_dtype, use_pallas)."""
+    if callable(nbr):
+        return nbr(x, w, compute_dtype, use_pallas)
     if isinstance(nbr, dict):
         ks, scale = nbr['ksize'], nbr['scale']
         if nbr['stride_child']:

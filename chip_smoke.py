@@ -115,9 +115,47 @@ Phases, in order; any failure exits non-zero:
      formulation; one step's averaged grads within phase 7's bounds of the
      twins' data-parallel backward on the same forward graph; (c) the same
      over NCCL, one card per rank, where the machine has two cards.
+ 16. spatial sharding (parallel/spatial.py): the ARKitScenes preset as it
+     ships (layers 2, cin 6 with normals, 4 heads, segment pooling, 4 cm
+     voxels, f32, key_conv on) under --spatial_shards 2
+     --spatial_gather_level 3, on SP_SCENES on-disk scenes of a 20 x 14 m
+     room (300-480k voxels each) from seeded kaiming weights (seed 1); the
+     one-device SelectionNet first on the same scenes and weights (its
+     outputs kept on the host, its memory freed), then two gloo ranks on
+     this card: (a) the eval-mode forward within phase 4's bounds of the
+     one-device forward and of the same spatial forward on the twins, the
+     forward key modes (same, down, stem) launched on every rank, no up,
+     no twin; each key kernel at the spatial shapes against its twin; (b)
+     Evaluater.eval on the scenes with the kernels (the ARKitScenes mAP
+     from rank 0) and on unrounded f32 twins: there, per scene, the
+     confidences within rtol 1e-3, labels equal and < 1e-3 of the mask
+     bits apart from the one-device fused eval on the same twins (with
+     the kernels, bf16 rounding flips part two forwards' NMS decisions,
+     as they part one device's kernels from its twins: printed); (c) one
+     step's averaged grads against the one-device step's on the same
+     scene and weights, under deterministic algorithms: with the kernels
+     and BN on its running statistics (the JAX package's protocol for its
+     key-conv spatial grads test: train-mode BN amplifies rounding flips
+     through the few-voxel deep levels; printed) within phase 7's
+     whole-step bounds, and on unrounded f32 twins in train mode within
+     3e-3 / 0.99999, its largest tensors' shares printed (the batch-moment
+     BNs amplify f32 summation order: scripts/spatial_diagnose.py); the
+     kernels' grads within phase 7's 1e-2 of the
+     twins' backward on the same graph; then SP_STEPS spatial train
+     steps: losses finite and equal on the ranks, the parameters
+     bit-equal across them after each, every training kernel mode
+     launched on every rank, no twin; rank 0's checkpoint loaded into the
+     one-device Model facade, bit-equal; (d) the forward's ms beside
+     the one-device forward's, the step's ms, one step under
+     torch.profiler (the halo exchanges' share of it), peak memory per
+     rank beside the one-device run's; (e) where the machine has two
+     cards, the forward and one step over NCCL, one card per rank, and the
+     train and evaluate CLIs under --spatial_shards 2; else one line that
+     says why not.
 Prints the card's name and power limit, one JSON line of per-kernel numbers
-(with each kernel's launches on one rank of phase 15 (b), `dp_launches`),
-and last `{"ok": true, "device": {...}}`.
+(with each kernel's launches on one rank of phase 15 (b), `dp_launches`, and
+on rank 0 of phase 16 (c), `spatial_launches`), and last `{"ok": true,
+"device": {...}}`.
 """
 
 import contextlib
@@ -138,6 +176,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from box2mask_torch import evaluate as eval_cli
@@ -152,7 +191,9 @@ from box2mask_torch.engine.evaluate import Evaluater
 from box2mask_torch.engine.infer import FusedInferencePipeline, upload
 from box2mask_torch.engine.train import Trainer, warmstart_fresh_params
 from box2mask_torch.model import Model
+from box2mask_torch.nn.losses import compute_losses
 from box2mask_torch.parallel import mesh as M
+from box2mask_torch.parallel import spatial as SP
 from box2mask_torch.postprocess import device_post as DP
 from box2mask_torch.postprocess.device_post import (fused_postproc,
                                                     stacked_masks_to_results)
@@ -1897,7 +1938,7 @@ def cli_phase(device, smi):
 
 # phase 15: data-parallel training (parallel/mesh.py) on the preset as it
 # ships, phase 6's batches and initial weights (seed 1).
-DP_STEPS = 3
+DP_STEPS = 2
 DP_TIMEOUT_S = 420.0           # the ranks' run, spawn to join
 
 
@@ -2260,6 +2301,709 @@ def dp_multi_phase(tag, world, backend, cards, tbatches, smi):
     return {p: row[p]['launches_rank0'] for p in ('key', 'nmap')}
 
 
+# phase 16: spatial sharding (parallel/spatial.py): one scene's U-Net split
+# over 2 ranks, the ARKitScenes preset as it ships (layers 2, cin 6, 4
+# heads, segment pooling, 4 cm voxels, f32 activations, key_conv on)
+SPATIAL_ARGS = ['--config', os.path.join(ROOT, 'configs', 'arkitscenes.txt'),
+                '--fixed_seed', '10']
+SPATIAL_FLAGS = ['--spatial_shards', '2', '--spatial_gather_level', '3']
+SP_SCENES = 2
+# a 20 x 14 m room of 1.6M vertices (800k points after the preset's [::2]):
+# 300-480k voxels of 4 cm after the preset's scaling augmentation (0.8-1.2
+# per axis under the fixed seed), inside the 1024-voxel-per-axis packing
+SP_FIXTURE = dict(n_vertices=1_600_000, size=(20.0, 14.0, 2.6),
+                  n_objects=32, seed=31)
+SP_MIN_VOXELS = 250_000
+SP_STEPS = 3
+SP_TIMEOUT_S = 600.0
+SP_FWD_MODES = ('same', 'down', 'stem')
+SP_TRAIN_MODES = ('same', 'down', 'up', 'stem', 'dw', 'stem_dw')
+# sharded vs one-device evaluation, per scene (tests/test_spatial_unet.py
+# test_sharded_eval_matches_single_device)
+SP_CONF_RTOL, SP_MASK_BITS = 1e-3, 1e-3
+# one step's unrounded f32 twins' train-mode grads, sharded vs one device:
+# the same function up to f32 summation order, which the batch-moment BNs
+# amplify, most at levels >= G, where a BN normalises over few rows (82 and
+# 17 at levels 6 and 7). scripts/spatial_diagnose.py (NVIDIA H100 80GB
+# HBM3, 700.00 W) reads 2.449e-3 here, and one device's own grads 1.59e-3
+# to 2.35e-3 when its input features move by 1e-7 relative, with the same
+# share by level; just above those
+SP_GRAD32_L2_TOL, SP_GRAD32_COS_TOL = 3e-3, 0.99999
+SP_TWINS = {'key_conv': KC.key_conv_plain,
+            'key_conv_stem': lambda x, kin, w: KC.key_conv_plain(
+                x, kin, kin.reshape(-1), w, kernel_size=5,
+                out_dtype=torch.float32),
+            'key_conv_dw': KC.key_conv_dw_plain,
+            'key_conv_stem_dw': lambda x, g, kin: KC.key_conv_dw_plain(
+                x, g, kin, kin.reshape(-1), kernel_size=5)}
+
+
+def spatial_cfg(data_dir, sharded=True, f32=False):
+    """The preset; `f32` multiplies the neighbor-map and 1x1 convs' operands
+    unrounded (--compute_dtype float32), for the unrounded comparisons."""
+    return get_config(SPATIAL_ARGS + ['--data_dir', data_dir]
+                      + (SPATIAL_FLAGS if sharded else [])
+                      + (['--compute_dtype', 'float32'] if f32 else []))
+
+
+@contextlib.contextmanager
+def unrounded_twins():
+    """Every key conv and dw through its plain twin on unrounded f32
+    operands, x kept unrounded for the backward (tests/
+    test_torch_parallel_common.patch_unrounded): with --compute_dtype
+    float32 the one-device and the sharded nets then compute the same f32
+    function, up to the order of f32 sums."""
+    f32 = dict(operand_dtype=torch.float32)
+    names = ('SAVED_X_DTYPE', 'key_conv', 'key_conv_stem', 'key_conv_dw',
+             'key_conv_stem_dw')
+    saved = {k: getattr(KC, k) for k in names}
+    KC.SAVED_X_DTYPE = torch.float32
+    KC.key_conv = lambda x, kin, kout, w, **kw: KC.key_conv_plain(
+        x, kin, kout, w, **f32, **kw)
+    KC.key_conv_stem = lambda x, kin, w: KC.key_conv_plain(
+        x, kin, kin.reshape(-1), w, kernel_size=5, out_dtype=torch.float32,
+        **f32)
+    KC.key_conv_dw = lambda x, g, kin, kout, **kw: KC.key_conv_dw_plain(
+        x, g, kin, kout, **f32, **kw)
+    KC.key_conv_stem_dw = lambda x, g, kin: KC.key_conv_dw_plain(
+        x, g, kin, kin.reshape(-1), kernel_size=5, **f32)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(KC, k, v)
+
+
+def spatial_fixtures(root):
+    """SP_SCENES ARKitScenes scenes of SP_FIXTURE in each split."""
+    names = [f'4210{i:04d}' for i in range(SP_SCENES)]
+    for split in ('Validation', 'Training'):
+        fixtures.write_arkitscenes(root, names, split, **SP_FIXTURE)
+
+
+def spatial_dataset(cfg):
+    """The val split in name order (the reader lists its directory in the
+    file system's order), with the eval's test-time augmentation."""
+    ds = loader.get_dataset(cfg, 'val', do_augmentations=not cfg.eval_wo_aug)
+    ds.data_list = np.sort(ds.data_list)
+    return ds
+
+
+def first_batch(ds):
+    ld = ds.get_loader(shuffle=False, drop_last=False, batch_size=1)
+    try:
+        return next(iter(ld))
+    finally:
+        ld.close()
+
+
+def spatial_reference(data_dir, device, out_dir):
+    """The one-device SelectionNet on the same scenes and seeded weights
+    (seed 1), written for the ranks and the checks: the eval-mode forward
+    of the first val scene (its ms, peak memory), one train step's grads
+    on it (peak memory), and the fused evaluation's results of the
+    SP_SCENES val scenes. Everything it holds on the card is freed."""
+    cfg = spatial_cfg(data_dir, sharded=False)
+    n_classes = len(tables.get_tables('arkitscenes')[0])
+    model = S.build_model(cfg, n_classes, device)
+    kaiming_init_(model, torch.Generator().manual_seed(1))
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save(sd, os.path.join(out_dir, 'weights.pt'))
+    ds = spatial_dataset(cfg)
+    dev_np, host = first_batch(ds)
+    batch = upload(dev_np, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    pred = S.forward(model, batch)
+    fwd_ms = time_ms(lambda: S.forward(model, batch), reps=5)
+    fwd_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    # how far bf16 rounding flips alone move this scene's heads: the same
+    # one-device forward on the twins (logged, for scale)
+    pred_t = with_twins(lambda: S.forward(model, batch))
+    n_seg = int(batch['seg_valid'].sum())
+    log('[spatial_reference] one device, kernels - twins, max / mean over '
+        'valid segments of |diff| / max |twins|: ' + json.dumps({
+            h: [((pred[h] - pred_t[h])[:n_seg].abs().max()
+                 / pred_t[h][:n_seg].abs().max()).item(),
+                ((pred[h] - pred_t[h])[:n_seg].abs().mean()
+                 / pred_t[h][:n_seg].abs().max()).item()] for h in pred}))
+    del pred_t
+    tx = S.make_optimizer(cfg)
+    state = S.TrainState(model, tx, tx.init(list(model.parameters())))
+    bb_w, cs_w = S.head_weights(cfg, 200)
+    torch.cuda.reset_peak_memory_stats(device)
+    grads = {}
+    with deterministic():
+        for mode, train in (('train', True), ('eval', False)):
+            gk, gt, loss = loss_grads(cfg, model, batch, bb_w, cs_w, train)
+            grads[mode] = (gk, loss, grad_distance(gk, gt)[:2])
+            model.load_state_dict(sd)
+    step_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    log('[spatial_reference] one device, kernels\' grads vs the twins\' '
+        'backward on the same graph, (L2, cosine), for scale: '
+        + json.dumps({m: g[2] for m, g in grads.items()}))
+    results = Evaluater(cfg, state=state).fused_dataset_results(
+        ds, cache=False)[0]
+    results_twins = with_twins(lambda: Evaluater(
+        cfg, state=state).fused_dataset_results(ds, cache=False)[0])
+    log(f'[spatial_reference] one device\'s eval, kernels vs twins, per '
+        'scene (masks, max conf rel diff, labels equal, mask bits '
+        'differing), for scale: '
+        + str(same_eval_results(results, results_twins)))
+    # the same function unrounded in f32 (the twins), for the sharp checks
+    cfg32 = spatial_cfg(data_dir, sharded=False, f32=True)
+    model32 = S.build_model(cfg32, n_classes, device)
+    model32.load_state_dict(sd)
+    state32 = S.TrainState(model32, tx, tx.init(list(model32.parameters())))
+    with unrounded_twins():
+        grads32, _, loss32 = loss_grads(cfg32, model32, batch, bb_w, cs_w,
+                                        True, twins=False)
+        model32.load_state_dict(sd)
+        results32 = Evaluater(cfg32, state=state32).fused_dataset_results(
+            ds, cache=False)[0]
+    ref = {'pred': {k: v.cpu() for k, v in pred.items()},
+           'seg_valid': batch['seg_valid'].cpu(),
+           'grads': grads['eval'][0], 'grads_loss': grads['eval'][1],
+           'grads_train': grads['train'][0],
+           'grads_train_loss': grads['train'][1],
+           'grads32': grads32, 'grads32_loss': loss32,
+           'results': results, 'results32': results32, 'fwd_ms': fwd_ms,
+           'fwd_peak_GB': fwd_peak, 'step_peak_GB': step_peak,
+           'n_voxels': host['num_voxels'][0]}
+    del model, model32, state, state32, batch, pred, tx
+    torch.cuda.empty_cache()
+    return ref
+
+
+def loss_grads(cfg, model, batch, bb_w, cs_w, train, group=None,
+               twins=True):
+    """The grads of one forward's loss (BN on batch moments with `train`,
+    on the running statistics without) with the kernels and, with `twins`,
+    with the twins' backward on the same forward graph (phase 7 (a)); with
+    a process group each averaged over the ranks (the step's psum / D).
+    Returns (kernel grads, twin grads or None, loss) on the host. The
+    caller restores the weights: a train-mode forward moves the BN
+    statistics."""
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    model.train(train)
+    full = S.ensure_maps(batch)
+    loss = compute_losses(cfg, model(full), full, bb_w, cs_w)[
+        'optimization_loss']
+
+    def grads():
+        gs = torch.autograd.grad(loss, params, retain_graph=True,
+                                 allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g
+              for g, p in zip(gs, params)]
+        if group is not None:
+            M.all_reduce_mean_(gs, group)
+        return {n: g.detach().cpu() for n, g in zip(names, gs)}
+    gk, gt = grads(), None
+    if twins:
+        saved = {k: getattr(KC, k) for k in SP_TWINS}
+        for k, f in SP_TWINS.items():
+            setattr(KC, k, f)
+        try:
+            gt = grads()
+        finally:
+            for k, f in saved.items():
+                setattr(KC, k, f)
+    return gk, gt, float(loss.detach())
+
+
+def spatial_kernel_check(batch, g):
+    """Each key kernel of the spatial path at its shapes there (level 0's
+    extended keys, ext_pad rows; the local level-1 keys of the down conv)
+    against its plain twin, timed: [(name, max err, tol, ms, plain ms)]."""
+    kin = batch['sp_ext_keys0'].reshape(1, -1)
+    kout = batch['sp_kcd_okeys0'].reshape(-1)
+    n = kin.numel()
+    dev = kin.device
+    x = torch.randn(n, 32, generator=g).to(dev)
+    x6 = torch.randn(n, 6, generator=g).to(dev)
+    gsame = torch.randn(n, 32, generator=g).to(dev)
+    gout = torch.randn(kout.numel(), 32, generator=g).to(dev)
+    w27 = (torch.randn(27, 32, 32, generator=g) / 30).to(dev)
+    w8 = (torch.randn(8, 32, 32, generator=g) / 16).to(dev)
+    w125 = (torch.randn(125, 6, 32, generator=g) / 60).to(dev)
+    same = dict(kernel_size=3, scale=1)
+    down = dict(kernel_size=2, stride_child=True, scale=1, guard=False)
+    up = dict(kernel_size=2, stride_parent=True, scale=1, guard=False)
+    fwd = [
+        ('same3_l0_ext_32', lambda: KC.key_conv(x, kin, kin.reshape(-1),
+                                                w27, **same),
+         lambda: KC.key_conv_plain(x, kin, kin.reshape(-1), w27, **same)),
+        ('down_l0_ext_32', lambda: KC.key_conv(x, kin, kout, w8, **down),
+         lambda: KC.key_conv_plain(x, kin, kout, w8, **down)),
+        ('up_l1_ext_32', lambda: KC.key_conv(
+            gout, kout.reshape(1, -1), kin.reshape(-1),
+            w8.transpose(1, 2), **up),
+         lambda: KC.key_conv_plain(gout, kout.reshape(1, -1),
+                                   kin.reshape(-1), w8.transpose(1, 2),
+                                   **up)),
+        ('stem5_l0_ext_6_32', lambda: KC.key_conv_stem(x6, kin, w125),
+         lambda: SP_TWINS['key_conv_stem'](x6, kin, w125))]
+    rows = []
+    for name, kern, twin in fwd:
+        a, b = kern(), twin()
+        err = (a - b).abs().max().item()
+        tol = F32_TOL * b.abs().max().item()
+        rows.append((name, err, tol, time_ms(kern, 3), time_ms(twin, 3)))
+        if not (err <= tol and torch.isfinite(a).all()):
+            raise AssertionError(f'spatial {name}: max err {err} > {tol}')
+    dws = [('dw_same3_l0_ext_32', (x, gsame, kin, kin.reshape(-1)), same,
+            lambda: KC.key_conv_dw(x, gsame, kin, kin.reshape(-1), **same),
+            lambda: KC.key_conv_dw_plain(x, gsame, kin, kin.reshape(-1),
+                                         **same)),
+           ('stem_dw_l0_ext_6_32', (x6, gsame, kin, kin.reshape(-1)),
+            dict(kernel_size=5), lambda: KC.key_conv_stem_dw(x6, gsame, kin),
+            lambda: SP_TWINS['key_conv_stem_dw'](x6, gsame, kin))]
+    for name, args, kw, kern, twin in dws:
+        err, tol, _, _, ok = dw_check(*args, kern(), twin(), **kw)
+        rows.append((name, err, tol, time_ms(kern, 3), time_ms(twin, 3)))
+        if not ok:
+            raise AssertionError(f'spatial {name}: max err {err} > {tol}')
+    return rows
+
+
+def spatial_counts():
+    return {'key_conv': dict(KC.LAUNCHES), 'twins': dict(KC.PLAIN_CALLS),
+            'xla': dict(ops.XLA_CALLS), 'halo': dict(SP.HALO)}
+
+
+class RecordingEvaluater(Evaluater):
+    """The Evaluater, keeping the results its spatial path returned."""
+
+    def spatial_dataset_results(self, dataset):
+        self.recorded = super().spatial_dataset_results(dataset)
+        return self.recorded
+
+
+def spatial_rank(rank, world, backend, init, out_dir, cards, data_dir,
+                 full):
+    """One rank of phase 16, in a spawned process on cuda:cards[rank]."""
+    try:
+        device = resolve_device(torch.device('cuda', cards[rank]))
+        group = M.init_data_parallel(rank, world, backend, init, device,
+                                     timeout=SP_TIMEOUT_S)
+        try:
+            res = spatial_rank_run(rank, group, device, out_dir, data_dir,
+                                   full)
+        finally:
+            M.teardown()
+        torch.save(res, os.path.join(out_dir, f'rank{rank}.pt'))
+    except BaseException:
+        with open(os.path.join(out_dir, f'rank{rank}.err'), 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spatial_rank_run(rank, group, device, out_dir, data_dir, full):
+    """(a) the eval-mode forward of the first val scene from the reference
+    weights, its counts, time and peak memory, and the same forward on the
+    twins; with `full`, the spatial kernels against their twins at their
+    shapes, (b) Evaluater.eval of the SP_SCENES val scenes; then (c) the
+    grads of one step (kernels, and the twins' backward on the same
+    graph), and SP_STEPS (with `full`, else 1) train steps from the
+    reference weights with their counts, losses and the parameters'
+    digest after each, (d) one step under torch.profiler, and the
+    checkpoint of rank 0."""
+    cfg = spatial_cfg(data_dir)
+    n_classes = len(tables.get_tables('arkitscenes')[0])
+    sd = torch.load(os.path.join(out_dir, 'weights.pt'))
+    model = SP.build_spatial_model(cfg, n_classes, device, group)
+    model.load_state_dict(sd)
+    ds = spatial_dataset(cfg)
+    dev_np, host = first_batch(ds)
+    SP.check_same_scene(dev_np, group, device)
+    batch = SP.local_batch(dev_np, rank, device)
+    meta = host['spatial_meta']
+    out = {'pads': meta['pads'], 'halos': meta['halos'],
+           'rows': int(dev_np['sp_num0'][rank])}
+    fwd = SP.make_spatial_apply(model)
+    fwd(batch)                                           # warm-up
+    torch.cuda.synchronize()
+    reset_all_counts()
+    SP.reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    pred = fwd(batch)
+    torch.cuda.synchronize()
+    out['fwd_counts'] = spatial_counts()
+    out['fwd_peak_GB'] = torch.cuda.max_memory_allocated(device) / 1e9
+    out['fwd_ms'] = time_ms(lambda: fwd(batch), reps=5)
+    pred_t = with_twins(lambda: fwd(batch))
+    compare_forwards(f'spatial_forward rank {rank}', pred, pred_t, batch,
+                     'kernel - twin')
+    out['pred'] = {k: v.cpu() for k, v in pred.items()}
+    del pred, pred_t
+    cfg32 = spatial_cfg(data_dir, f32=True)
+    model32 = SP.build_spatial_model(cfg32, n_classes, device, group)
+    model32.load_state_dict(sd)
+    world = dist.get_world_size(group)
+    tx = S.make_optimizer(cfg)
+    if full:
+        out['kernels'] = spatial_kernel_check(
+            batch, torch.Generator().manual_seed(5 + rank))
+        for tag, c, m, ctx in (
+                ('eval', cfg, model, contextlib.nullcontext()),
+                ('eval32', cfg32, model32, unrounded_twins())):
+            ev = RecordingEvaluater(c, state=S.TrainState(
+                m, tx, tx.init(list(m.parameters()))), rank=rank,
+                world_size=world, group=group)
+            t0 = time.perf_counter()
+            with ctx:
+                out[f'{tag}_map'] = ev.eval(spatial_dataset(c))
+            out[f'{tag}_s'] = time.perf_counter() - t0
+            out[f'{tag}_results'] = ev.recorded[0]
+    bb_w, cs_w = S.head_weights(cfg, 200)
+    with deterministic():
+        for key, train in (('grads_train', True), ('grads', False)):
+            gk, gt, out[f'{key}_loss'] = loss_grads(
+                cfg, model, batch, bb_w, cs_w, train, group)
+            out[f'{key}_vs_twins'] = grad_distance(gk, gt)[:2]
+            if rank == 0:
+                out[key] = gk
+            model.load_state_dict(sd)
+    del gk, gt
+    with unrounded_twins():
+        g32, _, out['grads32_loss'] = loss_grads(
+            cfg32, model32, batch, bb_w, cs_w, True, group, twins=False)
+    if rank == 0:
+        out['grads32'] = g32
+    del g32, model32
+    tx = S.make_optimizer(cfg)
+    state = S.TrainState(model, tx, tx.init(list(model.parameters())))
+    step = SP.make_spatial_train_step(cfg, group)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    SP.reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, ms, digests = [], [], []
+    for i in range(SP_STEPS if full else 1):
+        (_, ld), t = sync_ms(lambda: step(state, batch,
+                                          cfg.lr * (1 - 0.1 * i), bb_w,
+                                          cs_w))
+        losses.append({k: float(v) for k, v in ld.items()})
+        ms.append(t)
+        M.check_replicas(state, group)
+        digests.append(M.replica_digest(state))
+    out['train_counts'] = spatial_counts()
+    out.update(losses=losses, step_ms=ms, digests=digests,
+               step_peak_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+    if not full:
+        return out
+    # (d) one step under torch.profiler: the spatial collectives' host
+    # ranges against the step's wall time, and the device's busy time
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, cfg.lr, bb_w, cs_w)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, busy = {}, 0.0
+    for e in prof.events():
+        if e.device_type.name == 'CUDA':
+            busy += e.time_range.elapsed_us() / 1e3
+        elif e.name.startswith('spatial.'):
+            t, c = spans.get(e.name, (0.0, 0))
+            spans[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    out['profile'] = {'wall_ms': wall, 'device_busy_ms': busy,
+                      'idle_share': 1 - busy / wall, 'spans': spans}
+    M.check_replicas(state, group)
+    if rank == 0:
+        checkpoint.save_checkpoint(cfg.checkpoint_path, state, 1.0, 1,
+                                   SP_STEPS + 1)
+        out['final_digest'] = M.replica_digest(state)
+    dist.barrier(group=group)
+    return out
+
+
+def run_spatial_ranks(backend, cards, data_dir, out_dir, full):
+    """The 2 ranks of phase 16; their results by rank."""
+    init = 'file://' + os.path.join(out_dir, f'init_{backend}')
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=spatial_rank, args=(
+        r, 2, backend, init, out_dir, cards, data_dir, full))
+        for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        errs = []
+        for r, p in enumerate(procs):
+            path = os.path.join(out_dir, f'rank{r}.err')
+            if os.path.exists(path):
+                with open(path) as f:
+                    errs.append(f'rank {r}: {f.read()}')
+            elif p.is_alive() or p.exitcode != 0:
+                errs.append(f'rank {r}: alive {p.is_alive()}, exit code '
+                            f'{p.exitcode}')
+        if errs:
+            raise AssertionError('spatial ranks failed:\n' + '\n'.join(errs))
+        res = [torch.load(os.path.join(out_dir, f'rank{r}.pt'),
+                          weights_only=False) for r in range(2)]
+        for r in range(2):
+            os.remove(os.path.join(out_dir, f'rank{r}.pt'))
+        return res, time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+
+
+def same_eval_results(a, b):
+    """Per scene, the fractions and differences the sharded-eval bounds
+    read: (masks, max conf rel diff, labels equal, mask bits differing)."""
+    out = {}
+    for name in a:
+        r, g = a[name], b.get(name)
+        if g is None or len(r['conf']) != len(g['conf']):
+            out[name] = (len(r['conf']), None if g is None
+                         else len(g['conf']), False, 1.0)
+            continue
+        ro = np.argsort(-np.asarray(r['conf']), kind='stable')
+        go = np.argsort(-np.asarray(g['conf']), kind='stable')
+        rc, gc = np.asarray(r['conf'])[ro], np.asarray(g['conf'])[go]
+        rel = float((np.abs(rc - gc) / np.maximum(np.abs(rc), 1e-30)).max()
+                    ) if len(rc) else 0.0
+        labels = bool(np.array_equal(np.asarray(r['label_id'])[ro],
+                                     np.asarray(g['label_id'])[go]))
+        rm, gm = np.asarray(r['mask'])[ro], np.asarray(g['mask'])[go]
+        bits = float((rm != gm).mean()) if rm.size else 0.0
+        out[name] = (len(rc), rel, labels, bits)
+    return out
+
+
+def top_shares(a, b, n=5):
+    """The n tensors with the largest share of |a - b|^2, each with its
+    share and its own |a - b| / |b|."""
+    d = {k: float((a[k].double() - b[k].double()).square().sum()) for k in b}
+    total = sum(d.values()) or 1.0
+    return [[k, round(d[k] / total, 4), (d[k] / max(float(
+        b[k].double().square().sum()), 1e-300)) ** 0.5]
+        for k in sorted(d, key=d.get, reverse=True)[:n]]
+
+
+def spatial_checks(tag, res, ref, full):
+    """(a)-(c) on the ranks' results against the reference; raises."""
+    fails = []
+    n_seg = int(ref['seg_valid'].sum())      # the segments, in order
+    for r, rr in enumerate(res):
+        for head, b in ref['pred'].items():
+            a, b = rr['pred'][head][:n_seg], b[:n_seg]
+            scale = b.abs().max().item()
+            diff = (a - b).abs()
+            rel, rel_mean = (diff.max().item() / scale,
+                             diff.mean().item() / scale)
+            log(f'[{tag}] rank {r} {head}: |sharded - one device| / max '
+                f'|one device|: max {rel:.3e} (bound {FWD_MAX_TOL:g}), mean '
+                f'over valid segments {rel_mean:.3e} (bound '
+                f'{FWD_MEAN_TOL:g})')
+            if not (rel <= FWD_MAX_TOL and rel_mean <= FWD_MEAN_TOL):
+                fails.append(f'rank {r} {head} vs one device')
+        c = rr['fwd_counts']
+        if (min(c['key_conv'][m] for m in SP_FWD_MODES) == 0
+                or c['key_conv']['up'] or sum(c['twins'].values())):
+            fails.append(f'rank {r} forward counts {c}')
+        c = rr['train_counts']
+        if (min(c['key_conv'][m] for m in SP_TRAIN_MODES) == 0
+                or sum(c['twins'].values())):
+            fails.append(f'rank {r} train counts {c}')
+        l2, cos = rr['grads_vs_twins']
+        if not (l2 <= GRAD_BWD_L2_TOL and cos >= GRAD_BWD_COS_TOL):
+            fails.append(f'rank {r} grads vs twins L2 {l2} cos {cos}')
+        log(f'[{tag}] rank {r} kernels\' grads vs the twins\' backward on '
+            f'the same graph (L2, cosine): BN on running statistics '
+            f'{rr["grads_vs_twins"]} (bounds {GRAD_BWD_L2_TOL}, '
+            f'{GRAD_BWD_COS_TOL}); BN on batch moments '
+            f'{rr["grads_train_vs_twins"]} (for scale)')
+    flat_losses = [l for rr in res for l in rr['losses']]
+    if not all(np.isfinite(list(l.values())).all() for l in flat_losses):
+        fails.append('a loss is not finite')
+    if any(rr['losses'] != res[0]['losses'] for rr in res):
+        fails.append('losses differ between the ranks')
+    if any(rr['digests'] != res[0]['digests'] for rr in res):
+        fails.append('parameters differ between the ranks')
+    for what, key, l2_tol, cos_tol in (
+            ('kernels, BN on running statistics', 'grads', GRAD_L2_TOL,
+             GRAD_COS_TOL),
+            ('unrounded f32 twins, BN on batch moments', 'grads32',
+             SP_GRAD32_L2_TOL, SP_GRAD32_COS_TOL),
+            ('kernels, BN on batch moments (for scale)', 'grads_train',
+             None, None)):
+        l2, cos, _ = grad_distance(res[0][key], ref[key])
+        loss_rel = (abs(res[0][f'{key}_loss'] - ref[f'{key}_loss'])
+                    / abs(ref[f'{key}_loss']))
+        log(f'[{tag}] one step\'s averaged grads vs the one-device step\'s '
+            f'on the same scene and weights, {what}, deterministic '
+            f'algorithms: L2 {l2:.4e} (bound {l2_tol}), cosine {cos:.6f} '
+            f'(bound {cos_tol}), loss rel {loss_rel:.3e} (bound {LOSS_TOL})')
+        if key == 'grads32':
+            log(f'[{tag}] its tensors with the largest share of the squared '
+                'difference (share, own L2): ' + json.dumps(
+                    top_shares(res[0][key], ref[key])))
+        if l2_tol is not None and not (l2 <= l2_tol and cos >= cos_tol
+                                       and loss_rel <= LOSS_TOL):
+            fails.append(f'grads vs one device ({what}) L2 {l2} cos {cos} '
+                         f'loss {loss_rel}')
+    if full:
+        per = same_eval_results(ref['results32'], res[0]['eval32_results'])
+        raw = same_eval_results(ref['results'], res[0]['eval_results'])
+        log(f'[{tag}_eval] per scene (masks, max conf rel diff, labels '
+            f'equal, mask bits differing), sharded vs one device, both on '
+            f'unrounded f32 twins: {per} (bounds rtol {SP_CONF_RTOL}, equal, '
+            f'< {SP_MASK_BITS}); both with the kernels (bf16 rounding flips '
+            f'part the forwards, as one device\'s kernels part from its '
+            f'twins): {raw}; ARKitScenes mAP of the sharded path '
+            f'{res[0]["eval_map"]} (kernels), {res[0]["eval32_map"]} '
+            f'(twins); {res[0]["eval_s"]:.1f} s for {SP_SCENES} scenes')
+        if (set(per) != set(res[0]['eval32_results'])
+                or len(per) != SP_SCENES
+                or set(raw) != set(res[0]['eval_results'])
+                or not all(rel is not None and rel <= SP_CONF_RTOL and lab
+                           and bits < SP_MASK_BITS
+                           for _, rel, lab, bits in per.values())
+                or any(rr['eval_results'] != {} or rr['eval_map'] is not None
+                       for rr in res[1:])
+                or not np.isfinite(res[0]['eval_map'])):
+            fails.append(f'sharded eval vs one device: {per}')
+    if fails:
+        raise AssertionError(f'{tag}: ' + '; '.join(fails))
+
+
+def spatial_cli_check(data_dir, smi):
+    """(e) The train and evaluate CLIs under --spatial_shards 2 as users
+    start them, one NCCL rank per card, in subprocesses."""
+    root = tempfile.mkdtemp(prefix='b2m_sp_cli_')
+    env = dict(os.environ, BOX2MASK_EXP_ROOT=root)
+    env.pop('BOX2MASK_PLATFORM', None)
+    args = SPATIAL_ARGS + SPATIAL_FLAGS + ['--data_dir', data_dir,
+                                           '--ckpt_every', '1']
+    try:
+        for module, extra, want in (
+                ('box2mask_torch.train', ['--num_epochs', '2'],
+                 '2 ranks ended with equal parameters'),
+                ('box2mask_torch.evaluate', [], 'Loaded checkpoint')):
+            t0 = time.perf_counter()
+            p = subprocess.Popen(
+                [sys.executable, '-m', module] + args + extra, cwd=ROOT,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, start_new_session=True)
+            try:
+                out, err = p.communicate(timeout=300)
+            finally:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+            log(f'[spatial_cli] python -m {module} --spatial_shards 2: exit '
+                f'{p.returncode}, {time.perf_counter() - t0:.1f} s on {smi}')
+            if p.returncode != 0 or want not in out:
+                raise AssertionError(f'{module} --spatial_shards 2 failed: '
+                                     f'{out[-2000:]}\n{err[-4000:]}')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def spatial_phase(device, smi):
+    """Phase 16. Returns rank 0's launches per kernel mode over (c)'s
+    SP_STEPS train steps."""
+    root = tempfile.mkdtemp(prefix='b2m_spatial_')
+    saved_root = os.environ.get('BOX2MASK_EXP_ROOT')
+    os.environ['BOX2MASK_EXP_ROOT'] = os.path.join(root, 'exp')
+    t_phase = time.perf_counter()
+    try:
+        data_dir = os.path.join(root, 'arkitscenes')
+        t0 = time.perf_counter()
+        spatial_fixtures(data_dir)
+        fixture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = spatial_reference(data_dir, device, root)
+        ref_s = time.perf_counter() - t0
+        log(f'[spatial_reference] one device, {ref["n_voxels"]} voxels: '
+            f'forward {ref["fwd_ms"]:.2f} ms, peak {ref["fwd_peak_GB"]:.3f} '
+            f'GB; train step peak {ref["step_peak_GB"]:.3f} GB; fused eval '
+            f'of {SP_SCENES} scenes; {ref_s:.1f} s (fixtures {fixture_s:.1f}'
+            f' s) on {smi}')
+        if ref['n_voxels'] < SP_MIN_VOXELS:
+            raise AssertionError(f'spatial scene of {ref["n_voxels"]} voxels')
+        res, wall = run_spatial_ranks('gloo', [0, 0], data_dir, root, True)
+        spatial_checks('spatial', res, ref, True)
+        conf = checkpoint.list_checkpoints(spatial_cfg(
+            data_dir, sharded=False).checkpoint_path)
+        ids, id2idx, _, is_fg = tables.get_tables('arkitscenes')
+        pm = Model(spatial_cfg(data_dir, sharded=False), ids, id2idx,
+                   np.arange(len(ids)), is_fg, device=device)
+        pm.ensure_state()
+        pm.load_checkpoint()
+        if len(conf) != 1 or M.replica_digest(pm.state) != res[0][
+                'final_digest']:
+            raise AssertionError('the sharded checkpoint does not load into '
+                                 'the one-device Model facade')
+        del pm
+        torch.cuda.empty_cache()
+        prof = [rr['profile'] for rr in res]
+        halo = [p['spans'].get('spatial.halo_exchange', (0.0, 0))
+                for p in prof]
+        row = {
+            'card': smi, 'ranks': 2, 'backend': 'gloo', 'cards': [0, 0],
+            'voxels': ref['n_voxels'], 'rows_per_rank': [
+                rr['rows'] for rr in res],
+            'pads': res[0]['pads'], 'halos': res[0]['halos'],
+            'fwd_ms_sharded': [rr['fwd_ms'] for rr in res],
+            'fwd_ms_one_device': ref['fwd_ms'],
+            'step_ms': [rr['step_ms'] for rr in res],
+            'halo_exchange_share_of_step': [
+                h[0] / p['wall_ms'] for h, p in zip(halo, prof)],
+            'profiled_step': prof,
+            'peak_GB_fwd_per_rank': [rr['fwd_peak_GB'] for rr in res],
+            'peak_GB_fwd_one_device': ref['fwd_peak_GB'],
+            'peak_GB_step_per_rank': [rr['step_peak_GB'] for rr in res],
+            'peak_GB_step_one_device': ref['step_peak_GB'],
+            'fwd_counts_rank0': res[0]['fwd_counts'],
+            'train_counts_rank0': res[0]['train_counts'],
+            'optimization_loss': [l['optimization_loss']
+                                  for l in res[0]['losses']],
+            'ranks_wall_s': wall}
+        for r, rr in enumerate(res):
+            log(f'[spatial_launches] rank {r}: forward '
+                f'{rr["fwd_counts"]}; {SP_STEPS} train steps '
+                f'{rr["train_counts"]}')
+        for name, err, tol, ms, plain_ms in res[0]['kernels']:
+            log(f'[spatial_kernel] {name}: max_abs_err {err:.3e} (tol '
+                f'{tol:.3e}) kernel {ms:.3f} ms, plain twin {plain_ms:.3f} '
+                f'ms')
+        log('[spatial_times] ' + json.dumps(row))
+        launches = dict(res[0]['train_counts']['key_conv'])
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            res, wall = run_spatial_ranks('nccl', [0, 1], data_dir, root,
+                                          False)
+            spatial_checks('spatial_nccl', res, ref, False)
+            log(f'[spatial_nccl] 2 NCCL ranks on cards 0 and 1: forward ms '
+                f'{[rr["fwd_ms"] for rr in res]}, step ms '
+                f'{[rr["step_ms"] for rr in res]}, {wall:.1f} s on {smi}')
+            spatial_cli_check(data_dir, smi)
+        else:
+            log(f'[spatial_nccl] not run: NCCL takes one card per rank and '
+                f'this machine has {n_cards}; neither are the CLIs, which '
+                'spawn NCCL ranks')
+        log(f'[spatial] phase 16 in {time.perf_counter() - t_phase:.1f} s')
+        return launches
+    finally:
+        if saved_root is None:
+            os.environ.pop('BOX2MASK_EXP_ROOT', None)
+        else:
+            os.environ['BOX2MASK_EXP_ROOT'] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2396,6 +3140,11 @@ def main():
         log(f'[dp_nccl] not run: two NCCL ranks need two cards, this '
             f'machine has {n_cards}')
     del tbatches
+    torch.cuda.empty_cache()
+
+    # ---- 16. spatial sharding: one ARKitScenes scene over two gloo ranks
+    # on this card (and two NCCL ranks on two cards, where there are two)
+    sp_launches = spatial_phase(device, smi)
 
     kernels = []
     # bf16 rows: the ScanNet preset's activations (phase 3's launches); f32
@@ -2404,9 +3153,12 @@ def main():
     f32_launches = {m: sum(ds_launches[d].get(m, 0) for d in
                            ('arkitscenes', 's3dis')) for m in FWD_MODES}
     # dp_launches: one rank's launches over phase 15 (b)'s DP_STEPS
-    # data-parallel steps of its conv path (bf16 activations, as shipped)
+    # data-parallel steps of its conv path (bf16 activations, as shipped);
+    # spatial_launches: rank 0's over phase 16 (c)'s SP_STEPS spatial steps
+    # (f32 activations: the ARKitScenes preset; no neighbor-map kernel)
     for r in rows:
         bf16 = r['mode'] == 'stem' or r['name'].endswith('bfloat16')
+        f32 = not r['name'].endswith('bfloat16')
         n = launches[r['mode']] if bf16 else f32_launches[r['mode']]
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': SRC,
@@ -2414,7 +3166,8 @@ def main():
             'launches': n, 'max_abs_err': r['max_abs_err'],
             'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': None,
-            'dp_launches': dp_launches['key'][r['mode']] if bf16 else 0})
+            'dp_launches': dp_launches['key'][r['mode']] if bf16 else 0,
+            'spatial_launches': sp_launches[r['mode']] if f32 else 0})
     for r in dw_rows:
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': SRC,
@@ -2423,7 +3176,8 @@ def main():
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': None,
-            'dp_launches': dp_launches['key'][r['mode']]})
+            'dp_launches': dp_launches['key'][r['mode']],
+            'spatial_launches': sp_launches[r['mode']]})
     for r in nm_rows:
         if r['main']:
             kernels.append({
@@ -2433,7 +3187,8 @@ def main():
                 'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                 'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
-                'dp_launches': dp_launches['nmap'][r['kernel']]})
+                'dp_launches': dp_launches['nmap'][r['kernel']],
+                'spatial_launches': 0})
     for r in nt_rows:               # phase 13's shapes and launches
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': NMAP_SRC,
@@ -2442,7 +3197,8 @@ def main():
             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
-            'dp_launches': dp_launches['nmap'][r['kernel']]})
+            'dp_launches': dp_launches['nmap'][r['kernel']],
+            'spatial_launches': 0})
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

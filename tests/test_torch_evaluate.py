@@ -370,14 +370,17 @@ def test_cli_eval_training_sweeps_checkpoints(run, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('extra,match', [
     ([], 'no CUDA device'),
-    (['--spatial_shards', '2'], 'A13'),
+    # spatial sharding (ROADMAP A13) spawns one NCCL rank per card
+    pytest.param(['--spatial_shards', '2'], 'asks for 2 ranks.*CUDA cards',
+                 id='extra1-A13'),
     (['--produce_visualizations'], 'A20'),
     (['--predict_specific_scene', 'synth10000_00'], 'A20')])
 def test_cli_refuses(tmp_path, monkeypatch, extra, match):
     """Without CUDA and without BOX2MASK_PLATFORM=cpu the CLI raises (no
-    quiet CPU run); the modes not ported raise, naming the ROADMAP item."""
+    quiet CPU run; --spatial_shards 2 needs 2 cards); the modes not ported
+    raise, naming the ROADMAP item."""
     monkeypatch.setenv('BOX2MASK_EXP_ROOT', str(tmp_path))
-    if extra:
+    if 'A20' in match:
         monkeypatch.setenv('BOX2MASK_PLATFORM', 'cpu')
         exc = NotImplementedError
     else:
@@ -388,14 +391,43 @@ def test_cli_refuses(tmp_path, monkeypatch, extra, match):
         cli.main(ARGS + extra)
 
 
+def read(path):
+    with open(path) as f:
+        return f.read()
+
+
 @pytest.mark.parametrize('method', ['eval', 'submission_write_out',
                                     'param_search'])
 def test_evaluater_refuses_paths_not_ported(run, tmp_path, method):
-    """Spatially sharded evaluation (ROADMAP A13) is refused by every
-    entry point that runs the forward."""
+    """Under --spatial_shards (ROADMAP A13) eval runs on a process group of
+    that many ranks and refuses without one; the submission write-out and
+    the param search run the one-device net there, as the JAX package's
+    do: their output is the one without the flag (a 2-point grid)."""
     pc, _ = configs(str(tmp_path), ['--spatial_shards', '2'])
-    ev = Evaluater(pc, device='cpu')
-    with pytest.raises(NotImplementedError, match='A13'):
-        getattr(ev, method)(run.pds)
+    if method == 'eval':
+        with pytest.raises(RuntimeError, match='process group of 2 ranks'):
+            Evaluater(pc, device='cpu').eval(run.pds)
+    else:
+        one, _ = configs(str(tmp_path / 'one'))
+        outs = []
+        for i, c in enumerate((pc, one)):
+            c.cluster_th_search, c.score_th_search = [0.5, 0.5, 1], [0, .1, 2]
+            c.mask_bin_th_search = [0.3, 0.3, 1]
+            c.mask_nms_th_search = [0.6, 0.6, 1]
+            ev = Evaluater(c, state=port_state(c, run.params, run.stats),
+                           device='cpu')
+            args = ((str(tmp_path / f'out{i}'),)
+                    if method == 'submission_write_out' else ())
+            with warnings.catch_warnings():
+                warnings.simplefilter('ignore')
+                outs.append(getattr(ev, method)(run.pds, *args))
+        if method == 'param_search':
+            assert outs[0] == outs[1]
+        else:
+            files = [sorted((os.path.relpath(os.path.join(r, f), d),
+                             read(os.path.join(r, f)))
+                            for r, _, fs in os.walk(d) for f in fs)
+                     for d in outs]
+            assert files[0] == files[1] and len(files[0]) > 8
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Evaluater(pc)

@@ -90,13 +90,16 @@ def test_train_cli_checkpoint_resume_and_train_val(tmp_path, monkeypatch,
 def test_train_cli_refuses_and_needs_the_card_or_cpu(tmp_path, monkeypatch):
     monkeypatch.setenv('BOX2MASK_EXP_ROOT', str(tmp_path))
     monkeypatch.delenv('BOX2MASK_PLATFORM', raising=False)
-    with pytest.raises(NotImplementedError, match='A13'):
-        train_cli.main(RECIPE + ['--spatial_shards', '2'])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             train_cli.main(RECIPE)
         with pytest.raises(RuntimeError, match='CUDA cards'):
             train_cli.main(RECIPE + ['--multigpu'])
+        # spatial sharding (ROADMAP A13): one NCCL rank per card, so 2
+        # ranks need 2 cards
+        with pytest.raises(RuntimeError, match='--spatial_shards asks for '
+                                               '2 ranks.*CUDA cards'):
+            train_cli.main(RECIPE + ['--spatial_shards', '2'])
         ids, _, _, is_fg = PT.get_tables('scannet')
         with pytest.raises(RuntimeError, match='CUDA'):
             PM.Model(PC.get_config(RECIPE), ids,
