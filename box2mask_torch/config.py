@@ -7,7 +7,7 @@ Reads the same ``configs/*.txt`` format (``key = value`` lines, bare flags,
 Precedence: CLI > config file > default. Flags of the JAX package that the
 port does not read (the TPU's, the mesh's) are accepted, from a config file
 or the command line, and ignored; the multi-device and visualization flags
-are read, and the entry points refuse them naming the ROADMAP item.
+are read.
 The conv-path flags are read, with the JAX package's names, defaults and
 choices:
 ``--key_conv {on,eval,off}`` (key-matching convs, or neighbor maps built on
@@ -110,9 +110,11 @@ def config_parser():
     add('--score_th_search', default=[0, 0.2, 5], nargs=3, type=float)
     add('--mask_bin_th_search', default=[0.2, 0.35, 4], nargs=3, type=float)
     add('--mask_nms_th_search', default=[0.4, 0.8, 5], nargs=3, type=float)
-    # modes the port's evaluate CLI refuses, naming the ROADMAP item
+    # visualizations (viz/export.py): PLYs, bbs.npy and viewer.html per
+    # scene under <exp>/viz; --mesh_viz adds voxel surface meshes
     add('--produce_visualizations', default=False, action='store_true')
     add('--predict_specific_scene', type=str, default=None)
+    add('--mesh_viz', default=False, action='store_true')
     # spatial sharding (parallel/spatial.py): one scene's U-Net split over
     # this many ranks, levels < --spatial_gather_level sharded with
     # halo-exchanged convs, the coarser levels replicated; 0 / 1 = off

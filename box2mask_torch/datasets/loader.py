@@ -108,6 +108,8 @@ class Synthetic(SceneDataset):
     SPLIT_SIZES = {'train': 64, 'val': 16, 'test': 8, 'train+val': 80}
 
     def _build_data_list(self, mode, cfg):
+        if mode == 'predict_specific_scene':
+            return [cfg.predict_specific_scene]
         n = self.SPLIT_SIZES.get(mode, 16)
         base = {'train': 0, 'val': 10000, 'test': 20000}.get(
             mode.split('+')[0], 0)

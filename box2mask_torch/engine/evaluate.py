@@ -46,7 +46,8 @@ from box2mask_torch.datasets.tables import (ARKITSCENES_ID2NAME,
                                             S3DIS_CLASS_LABELS, get_tables)
 from box2mask_torch.engine import checkpoint as ckpt
 from box2mask_torch.engine import state as S
-from box2mask_torch.engine.infer import FusedInferencePipeline, upload
+from box2mask_torch.engine.hostload import upload
+from box2mask_torch.engine.infer import FusedInferencePipeline
 from box2mask_torch.metrics import box3d, detection_ap, s3dis_metrics
 from box2mask_torch.metrics import scannet_ap
 from box2mask_torch.parallel import spatial as SP

@@ -1,10 +1,13 @@
 """The inference pipeline (port of box2mask_tpu/engine/infer.py:46-156).
 
-Per batch: every array of the numpy batch goes to the device through a
-pinned host buffer (non-blocking copy), one forward + per-scene device
-post-processing runs, and a harvest thread copies the small stacked result
-back and unpacks the masks on the host, at software-pipeline depth
-DEPTH = 2: batch i's harvest overlaps the next batches' device work.
+Per batch: the numpy batch is packed into one compact-wire buffer
+(engine/hostload.py, the JAX package's codecs and per-signature fallback
+chain) in a pinned host buffer, on a packer thread one batch ahead of the
+main thread, and shipped in ONE non-blocking copy; the batch is decoded on
+the card, one forward + per-scene device post-processing runs, and a
+harvest thread copies the small stacked result back and unpacks the masks
+on the host, at software-pipeline depth DEPTH = 2: batch i's harvest
+overlaps the next batches' device work.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from box2mask_torch.engine import state as S
+from box2mask_torch.engine.hostload import BatchUploader
 from box2mask_torch.postprocess.device_post import (
     MAX_MASKS, fused_postproc, make_core, make_device_postproc,
     stacked_masks_to_results)
@@ -24,26 +28,19 @@ from box2mask_torch.runtime import resolve_device
 DEPTH = 2
 
 
-def upload(dev_np, device):
-    """numpy batch dict -> tensors on `device` (pinned staging on CUDA)."""
-    out = {}
-    for k, v in dev_np.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == 'cuda':
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
-
-
 class FusedInferencePipeline:
     """Streaming fused inference over an iterator of (dev_np, host) batches.
     `run` yields per-batch `(results, out_np, dev_np, host)` IN ORDER, where
     `results` is the detection_to_masks-compatible dict {scene_name: {conf,
-    label_id, mask}} (point-level masks in eval mode)."""
+    label_id, mask}} (point-level masks in eval mode). `pack_s`,
+    `wire_bytes` and `n_scenes` count the host packing seconds, the bytes
+    shipped and the scenes of the last `run`; `uploader.wires()` says which
+    wire each batch signature took."""
 
     def __init__(self, cfg, valid_class_ids, is_foreground, model=None,
                  top_k=128, max_masks=MAX_MASKS, device=None):
         self.device = resolve_device(device)
+        self.uploader = BatchUploader(self.device)
         self.cfg = cfg
         self.valid_class_ids = valid_class_ids
         self.model = model or S.build_model(cfg, len(valid_class_ids),
@@ -53,7 +50,16 @@ class FusedInferencePipeline:
         self.post_full = make_device_postproc(cfg, valid_class_ids,
                                               is_foreground, max_masks)
         self._harvester = ThreadPoolExecutor(max_workers=3)
+        self._packer = ThreadPoolExecutor(max_workers=1)
         self.n_scenes = 0
+
+    @property
+    def pack_s(self):
+        return self.uploader.pack_s
+
+    @property
+    def wire_bytes(self):
+        return self.uploader.wire_bytes
 
     @torch.no_grad()
     def infer(self, batch, ths):
@@ -71,6 +77,20 @@ class FusedInferencePipeline:
             native=self.cfg.use_native_host_ops)
         return results, out_np
 
+    def _ahead(self, batches):
+        """(packing future, dev_np, host) per batch: batch i + 1 is handed
+        to the packer thread before batch i is yielded, so its packing
+        overlaps batch i's launches on the main thread."""
+        prev = None
+        for dev_np, host in batches:
+            cur = (self._packer.submit(self.uploader.pack, dev_np), dev_np,
+                   host)
+            if prev is not None:
+                yield prev
+            prev = cur
+        if prev is not None:
+            yield prev
+
     def run(self, params, batches, ths):
         """Generator: yields (results, out_np, dev_np, host) per batch.
         `params` is a state_dict to load first (None keeps the model's)."""
@@ -78,17 +98,19 @@ class FusedInferencePipeline:
             self.model.load_state_dict(params)
         self.model.eval()
         self.n_scenes = 0
+        self.uploader.pack_s, self.uploader.wire_bytes = 0.0, 0
         ths_t = torch.as_tensor(np.asarray(ths, np.float32),
                                 device=self.device)
         pending = collections.deque()
-        for dev_np, host in batches:
+        for packed, dev_np, host in self._ahead(batches):
             if 'keys0_b' not in dev_np and len(host['scene']) != 1:
                 raise ValueError(
                     'a host-maps batch (coords beyond the key packing range, '
                     'or --host_coordinate_maps) holds one scene: batch size '
                     '1, or a larger --voxel_size')
             self.n_scenes += len(host['scene'])
-            pred, full, out = self.infer(upload(dev_np, self.device), ths_t)
+            buf, unpack = self.uploader.ship(packed.result())
+            pred, full, out = self.infer(unpack(buf), ths_t)
             fut = self._harvester.submit(self._harvest, pred, full, out,
                                          host, ths_t)
             pending.append((fut, dev_np, host))

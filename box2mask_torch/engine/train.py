@@ -45,7 +45,7 @@ from box2mask_torch.datasets.tables import get_tables
 from box2mask_torch.engine import checkpoint as ckpt
 from box2mask_torch.engine import state as S
 from box2mask_torch.engine.evaluate import Evaluater
-from box2mask_torch.engine.infer import upload
+from box2mask_torch.engine.hostload import upload
 from box2mask_torch.engine.schedule import lr_for_epoch
 from box2mask_torch.parallel import mesh as M
 from box2mask_torch.parallel import spatial as SP

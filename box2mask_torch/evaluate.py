@@ -9,19 +9,25 @@ S3DIS mPrecision / mRecall), the submission write-out under
 eval of every checkpoint of the experiment, its mAP scalars in
 `<exp>/eval_training/metrics.jsonl`. Validation is evaluated WITH
 augmentations under the fixed seed unless --eval_wo_aug (test-time
-augmentation). It runs on the card; `BOX2MASK_PLATFORM=cpu` asks for the
-CPU, and without CUDA and without that request it raises. Not ported yet:
---produce_visualizations and --predict_specific_scene (ROADMAP A20).
+augmentation). Under --produce_visualizations (the val split) or
+--predict_specific_scene NAME (that one scene) it writes each scene's
+visualizations into `<exp>/viz/<scene>/` (viz/export.py: rgb, gt_instances,
+gt_semantics, pred_instances, pred_semantics and pred_bbs PLYs, bbs.npy,
+viewer.html; with --mesh_viz two surface-mesh PLYs). It runs on the card;
+`BOX2MASK_PLATFORM=cpu` asks for the CPU, and without CUDA and without that
+request it raises.
 
 --spatial_shards D evaluates each ScanNet, synthetic or ARKitScenes scene
 split over D ranks (engine/evaluate.py, parallel/spatial.py), spawned as
 the train CLI's: one NCCL rank per card (raises when there are fewer than
 D cards), or D gloo ranks on the CPU under `BOX2MASK_PLATFORM=cpu`; the
 ranks take rank 0's seeds, so a scene augments alike on every rank, and
-rank 0 prints and writes the results. The submission write-out and the
-param search run on one device there, as the JAX package's do.
+rank 0 prints and writes the results. The visualizations, the submission
+write-out and the param search run on one device there, as the JAX
+package's do.
 """
 
+import copy
 import importlib
 import os
 import sys
@@ -33,17 +39,16 @@ from box2mask_torch.engine.evaluate import SPATIAL_DATASETS, Evaluater
 from box2mask_torch.engine.train import ScalarLog
 from box2mask_torch.parallel import mesh as M
 from box2mask_torch.runtime import resolve_device
+from box2mask_torch.viz.export import produce_visualizations
 
 
 def main(argv=None):
     argv = list(argv) if argv is not None else sys.argv[1:]
     cfg = get_config(argv)
     platform = os.environ.get('BOX2MASK_PLATFORM') or None
-    if cfg.predict_specific_scene or cfg.produce_visualizations:
-        raise NotImplementedError('visualizations are not ported to '
-                                  'box2mask_torch yet (ROADMAP A20)')
     if (cfg.spatial_shards > 1 and cfg.dataset_name in SPATIAL_DATASETS
-            and not (cfg.submission_write_out
+            and not (cfg.predict_specific_scene or cfg.produce_visualizations
+                     or cfg.submission_write_out
                      or cfg.submission_write_out_testset
                      or cfg.param_search)):
         world = cfg.spatial_shards
@@ -68,15 +73,28 @@ def rank_main(rank, world, backend, init_method, argv, platform):
 def run(cfg, device, **ranks):
     """The evaluation `cfg` asks for, on `device` (under --spatial_shards
     as one of the ranks that `ranks` names)."""
+    aug = not cfg.eval_wo_aug
+    # the modes that run on one device read whole-scene batches, also under
+    # --spatial_shards (the JAX CLI hands them the sharded batches there,
+    # which the one-device net cannot read: ROADMAP section C)
+    whole = copy.copy(cfg)
+    whole.spatial_shards = 0
+    if cfg.predict_specific_scene or cfg.produce_visualizations:
+        mode = ('predict_specific_scene' if cfg.predict_specific_scene
+                else 'val')
+        return produce_visualizations(
+            Evaluater(cfg, device=device, **ranks),
+            get_dataset(whole, mode, do_augmentations=aug), cfg)
     if cfg.submission_write_out or cfg.submission_write_out_testset:
         mode = 'test' if cfg.submission_write_out_testset else 'val'
         Evaluater(cfg, device=device, **ranks).submission_write_out(
-            get_dataset(cfg, mode, do_augmentations=not cfg.eval_wo_aug))
+            get_dataset(whole, mode, do_augmentations=aug))
         return
-
-    ds = get_dataset(cfg, 'val', do_augmentations=not cfg.eval_wo_aug)
     if cfg.param_search:
-        return Evaluater(cfg, device=device, **ranks).param_search(ds)
+        return Evaluater(cfg, device=device, **ranks).param_search(
+            get_dataset(whole, 'val', do_augmentations=aug))
+
+    ds = get_dataset(cfg, 'val', do_augmentations=aug)
     if cfg.eval_training:
         writer = ScalarLog(os.path.join(cfg.exp_path, 'eval_training',
                                         'metrics.jsonl'))

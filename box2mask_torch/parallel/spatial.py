@@ -57,7 +57,7 @@ from torch.profiler import record_function
 from box2mask_torch.datasets import tables
 from box2mask_torch.datasets.batching import map_semantics_to_idx
 from box2mask_torch.engine import state as S
-from box2mask_torch.engine.infer import upload
+from box2mask_torch.engine.hostload import upload
 from box2mask_torch.nn.losses import compute_losses
 from box2mask_torch.nn.modules import MaskedBatchNorm
 from box2mask_torch.nn.unet import SelectionNet

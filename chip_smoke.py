@@ -96,7 +96,9 @@ Phases, in order; any failure exits non-zero:
      the semantic output layer at its fresh init, every other tensor
      bit-equal to the checkpoint, one finite step; Model.get_prediction bit-equal to
      engine/state.forward; `python -m box2mask_torch.quality_gate` at
-     GATE_ARGS, which must pass; one `[train_cli]` line of their times.
+     GATE_ARGS, which must pass, writing its record, every key-path
+     kernel launched, no twin (its launches counted from 0 just before
+     it); one `[train_cli]` line of their times.
  15. data-parallel training (parallel/mesh.py) on phase 6's batches and
      initial weights: (a) a group of one NCCL rank, whose step is
      bit-equal to phase 6's S.train_step on the same batch and weights
@@ -152,10 +154,34 @@ Phases, in order; any failure exits non-zero:
      cards, the forward and one step over NCCL, one card per rank, and the
      train and evaluate CLIs under --spatial_shards 2; else one line that
      says why not.
+ 17. the modules of the last slice: (a) `python -m box2mask_torch.evaluate
+     --produce_visualizations --mesh_viz` on phase 12's 4 ScanNet fixture
+     scenes (configs/scannet.txt as it ships) from a checkpoint of seeded
+     weights: every key-path forward kernel mode launched, no twin; every
+     scene's full file set, each point PLY of the scene's point count, the
+     colours of pred_instances.ply bit-equal to instance_colors of the
+     masks that pred_entries_to_results gives on the cached predictions,
+     bbs.npy finite; then --predict_specific_scene on one scene, the same
+     checks; (b) a seeded state_dict in the reference's (MinkowskiEngine)
+     layout at the preset's width, converted by `python -m
+     box2mask_torch.convert_reference`, restored by an Evaluater bit-equal
+     to from_flax(convert_state_dict(sd)), its forward on a batch of phase
+     3 bit-equal to the forward on those weights built directly; (c) the
+     compact wire on phase 3's batches: unpack(pack(batch)) on the card
+     bit-equal to the per-array upload on every key, the wire each
+     signature took, the pipeline's per-scene results bit-equal with
+     either route, and the bytes, pack, upload and decode ms beside the
+     per-array upload's; the pipeline's scenes/s end to end with the
+     per-array upload, the wire packed one batch ahead (as shipped) and
+     the wire packed on the main thread (`[wire_e2e]`).
+Phase 3 also prints `[flops]`: the forward GFLOPs per scene (nn/flops.py,
+the batches' active rows per level) and the share of BF16_FLOP_S that the
+timed batches reach (`forward_mfu`, `batch_mfu`).
 Prints the card's name and power limit, one JSON line of per-kernel numbers
-(with each kernel's launches on one rank of phase 15 (b), `dp_launches`, and
-on rank 0 of phase 16 (c), `spatial_launches`), and last `{"ok": true,
-"device": {...}}`.
+(with each kernel's launches on one rank of phase 15 (b), `dp_launches`, on
+rank 0 of phase 16 (c), `spatial_launches`, in phase 17 (a)'s
+visualizations, `viz_launches`, and in phase 14's quality gate,
+`gate_launches`), and last `{"ok": true, "device": {...}}`.
 """
 
 import contextlib
@@ -188,9 +214,11 @@ from box2mask_torch.datasets import (batching, fixtures, loader,
 from box2mask_torch.datasets.voxelize import voxelize_scene
 from box2mask_torch.engine import checkpoint, state as S
 from box2mask_torch.engine.evaluate import Evaluater
-from box2mask_torch.engine.infer import FusedInferencePipeline, upload
+from box2mask_torch.engine.hostload import BatchUploader, upload
+from box2mask_torch.engine.infer import FusedInferencePipeline
 from box2mask_torch.engine.train import Trainer, warmstart_fresh_params
 from box2mask_torch.model import Model
+from box2mask_torch.nn.flops import estimate_forward_flops
 from box2mask_torch.nn.losses import compute_losses
 from box2mask_torch.parallel import mesh as M
 from box2mask_torch.parallel import spatial as SP
@@ -472,7 +500,11 @@ def stage_phase(pipe, cfg, batches, device, smi, tag=''):
     ths = torch.tensor(cfg.eval_ths, dtype=torch.float32, device=device)
     rows = []
     for dev_np, host in batches:
-        batch, t_up = sync_ms(lambda: upload(dev_np, device))
+        def packed_upload():            # the pipeline's route
+            buf, unpack = pipe.uploader.ship(pipe.uploader.pack(dev_np))
+            return unpack(buf)
+        batch, t_up = sync_ms(packed_upload)
+        _, t_per_array = sync_ms(lambda: upload(dev_np, device))
         full, t_maps = sync_ms(lambda: S.ensure_maps(batch))
         pred, t_fwd = sync_ms(lambda: pipe.model(full))
         out, t_post = sync_ms(lambda: fused_postproc(
@@ -482,12 +514,15 @@ def stage_phase(pipe, cfg, batches, device, smi, tag=''):
         stacked_masks_to_results(out_np, host, pipe.valid_class_ids,
                                  post_fallback=pipe.post_full, pred=pred,
                                  dev_t=full, ths=ths)
-        rows.append({'upload_ms': t_up, 'maps_ms': t_maps,
-                     'forward_ms': t_fwd,
+        rows.append({'upload_ms': t_up, 'per_array_upload_ms': t_per_array,
+                     'maps_ms': t_maps, 'forward_ms': t_fwd,
                      'postproc_ms': t_post,
                      'd2h_unpack_ms': (time.perf_counter() - t0) * 1e3,
-                     'n_keep': out_np['n_keep'].tolist()})
+                     'n_keep': out_np['n_keep'].tolist(),
+                     'forward_flops': forward_flops(cfg, pipe, dev_np),
+                     'scenes': len(host['scene'])})
     log(f'[{tag}stages] ' + json.dumps({'card': smi, 'per_batch': rows}))
+    flops_line(tag, rows, smi)
 
     batch = upload(batches[0][0], device)
 
@@ -496,6 +531,33 @@ def stage_phase(pipe, cfg, batches, device, smi, tag=''):
         fused_postproc(pipe.core, cfg, pipe.model(full), full, ths,
                        pipe.top_k)
     profile_window(f'{tag}profile', window, smi)
+
+
+def forward_flops(cfg, pipe, dev_np):
+    """nn/flops.py's forward FLOPs of the batch: its active rows per level
+    (the keys that are not the sentinel), its segments."""
+    ns = [int((np.asarray(dev_np[f'keys{l}_b']) != SENT_KEY).sum())
+          for l in range(8)]
+    return estimate_forward_flops(
+        ns, layers=cfg.layers, num_classes=len(pipe.valid_class_ids),
+        n_heads=len(cfg.network_heads),
+        n_segments=int(dev_np['num_segments']), in_dim=cfg.in_channels)
+
+
+def flops_line(tag, rows, smi):
+    """The forward GFLOPs per scene and the share of the card's bf16 peak
+    (BF16_FLOP_S, dense) that the timed batches reach: over the forward
+    stage alone, and over the batch's stages end to end."""
+    flops = sum(r['forward_flops'] for r in rows)
+    fwd_s = sum(r['forward_ms'] for r in rows) / 1e3
+    batch_s = sum(r['upload_ms'] + r['maps_ms'] + r['forward_ms']
+                  + r['postproc_ms'] + r['d2h_unpack_ms'] for r in rows) / 1e3
+    log(f'[{tag}flops] ' + json.dumps({
+        'card': smi, 'forward_gflops_per_scene':
+        flops / sum(r['scenes'] for r in rows) / 1e9,
+        'forward_mfu': flops / fwd_s / BF16_FLOP_S,
+        'batch_mfu': flops / batch_s / BF16_FLOP_S,
+        'peak_flop_s': BF16_FLOP_S}))
 
 
 def profile_window(tag, fn, smi, sums=()):
@@ -1919,13 +1981,29 @@ def cli_phase(device, smi):
         log(f'[train_cli] Model.get_prediction bit-equal to '
             f'engine/state.forward on {len(want)} heads')
 
+        record = os.path.join(root, 'quality_gate.json')
+        torch.cuda.synchronize()
+        KC.reset_counts()
+        PC.reset_counts()
         t0 = time.perf_counter()
-        rc, text = quiet(lambda: quality_gate.main(GATE_ARGS))
+        rc, text = quiet(lambda: quality_gate.main(GATE_ARGS + [
+            '--out', record]))
         row['quality_gate_s'] = time.perf_counter() - t0
+        row['gate_launches'] = dict(KC.LAUNCHES)
         row['quality_gate'] = json.loads(text.strip().splitlines()[-1])
         log('[train_cli] ' + json.dumps(row))
-        if rc != 0:
-            raise AssertionError(f'quality gate: {row["quality_gate"]}')
+        with open(record) as f:
+            written = json.load(f)
+        if rc != 0 or written != row['quality_gate']:
+            raise AssertionError(f'quality gate: {row["quality_gate"]}, '
+                                 f'written {written}')
+        if (min(KC.LAUNCHES[m] for m in FWD_MODES + ('dw', 'stem_dw')) == 0
+                or sum(PC.LAUNCHES.values()) + sum(
+                    KC.PLAIN_CALLS.values()) != 0):
+            raise AssertionError(f'quality gate: key_conv '
+                                 f'{dict(KC.LAUNCHES)}, neighbor-map '
+                                 f'launches {dict(PC.LAUNCHES)}, twins '
+                                 f'{dict(KC.PLAIN_CALLS)}')
     finally:
         Trainer._resume = saved_resume
         if saved_root is None:
@@ -3004,6 +3082,380 @@ def spatial_phase(device, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 17: the modules the last slice ported. (a) The visualizations at
+# full width: `python -m box2mask_torch.evaluate --produce_visualizations
+# --mesh_viz` on phase 12's ScanNet fixtures (the same generator and seed)
+# from a checkpoint of phase 12's seeded weights, then
+# --predict_specific_scene on one of them. (b) A reference (ME) checkpoint
+# of the ScanNet preset's width through `python -m
+# box2mask_torch.convert_reference`. (c) The compact upload wire on phase
+# 3's batches.
+VIZ_FILES = ('rgb.ply', 'gt_instances.ply', 'gt_semantics.ply',
+             'pred_instances.ply', 'pred_semantics.ply', 'pred_bbs.ply',
+             'pred_instances_mesh.ply', 'pred_semantics_mesh.ply', 'bbs.npy',
+             'viewer.html')
+POINT_PLYS = ('rgb.ply', 'gt_instances.ply', 'gt_semantics.ply',
+              'pred_instances.ply', 'pred_semantics.ply')
+
+
+def ply_u8(colors):
+    """The uchar colours datasets/ply.write_ply_points stores for `colors`."""
+    c = np.asarray(colors)
+    if c.max() <= 1.0 + 1e-6:
+        c = c * 255.0
+    return np.clip(c, 0, 255).astype(np.uint8)
+
+
+def viz_check(run, viz_dir, names):
+    """Every scene of `names` holds the full file set; each point PLY has
+    the scene's point count; the colours of pred_instances.ply equal
+    instance_colors(masks_to_instance_ids(...)) of the results that
+    pred_entries_to_results gives on the same cached predictions, bit for
+    bit; bbs.npy is finite. Returns the masks per scene."""
+    from box2mask_torch.datasets.ply import read_ply
+    from box2mask_torch.viz.export import (instance_colors,
+                                           masks_to_instance_ids)
+    ev = run['ev']
+    results = Evaluater.pred_entries_to_results(ev, run['entries'])
+    points = {str(s['name']): len(s['positions'])
+              for _, _, h in run['entries'] for s in h['scene']}
+    if sorted(os.listdir(viz_dir)) != sorted(names) or sorted(points) != \
+            sorted(names):
+        raise AssertionError(f'viz scenes {sorted(os.listdir(viz_dir))}, '
+                             f'predicted {sorted(points)}, want {names}')
+    n_masks = {}
+    for name in names:
+        d = os.path.join(viz_dir, name)
+        if sorted(os.listdir(d)) != sorted(VIZ_FILES):
+            raise AssertionError(f'{name}: files {sorted(os.listdir(d))}')
+        for f in POINT_PLYS:
+            if len(read_ply(os.path.join(d, f))['vertex']) != points[name]:
+                raise AssertionError(f'{name}/{f}: not {points[name]} points')
+        r = results[name]
+        ids = masks_to_instance_ids(r['mask'], r['conf'])
+        if ids is None:
+            ids = np.zeros(points[name], np.int64)
+        v = read_ply(os.path.join(d, 'pred_instances.ply'))['vertex']
+        got = np.stack([v['red'], v['green'], v['blue']], 1)
+        if not np.array_equal(got, ply_u8(instance_colors(ids))):
+            raise AssertionError(f'{name}: pred_instances.ply colours differ '
+                                 'from the results of pred_entries_to_'
+                                 'results')
+        bbs = np.load(os.path.join(d, 'bbs.npy'))
+        if bbs.ndim != 2 or bbs.shape[1] != 7 or not np.isfinite(bbs).all():
+            raise AssertionError(f'{name}: bbs.npy {bbs.shape}')
+        n_masks[name] = len(r['conf'])
+    return n_masks
+
+
+def viz_cli(args, smi, tag):
+    """The eval CLI's main() in a viz mode, counts set to 0 just before and
+    read just after: (the DatasetEvaluater run, wall s, key_conv launches)."""
+    torch.cuda.synchronize()
+    KC.reset_counts()
+    PC.reset_counts()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    quiet(lambda: eval_cli.main(args), keep=('Loaded',))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (dict(KC.LAUNCHES), dict(KC.PLAIN_CALLS), dict(PC.LAUNCHES),
+              dict(PC.PLAIN_CALLS), dict(ops.XLA_CALLS))
+    if (min(counts[0][m] for m in FWD_MODES) == 0
+            or sum(counts[1].values()) + sum(counts[3].values()) != 0
+            or sum(counts[2].values()) + sum(counts[4].values()) != 0):
+        raise AssertionError(f'{tag}: launches {counts}: not every key-path '
+                             'kernel mode, or a twin or a neighbor-map conv')
+    run = DatasetEvaluater.runs[-1]
+    DatasetEvaluater.runs.clear()
+    return run, wall, counts[0]
+
+
+def viz_part(root, smi):
+    """Phase 17 (a); returns the viz run's key_conv launches by mode."""
+    data = os.path.join(root, 'scannet')
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    names = [f'scene07{i:02d}_00' for i in range(DATASET_SCENES)]
+    split = fixtures.write_scannet(data, names,
+                                   n_vertices=DATASET_FIXTURES['scannet'],
+                                   seed=21)
+    fixture_s = time.perf_counter() - t0
+    args = ['--config', os.path.join(ROOT, 'configs', 'scannet.txt'),
+            '--data_dir', data, '--data_split', split, '--fixed_seed', '12',
+            '--mesh_viz']
+    cfg = get_config(args)
+    valid_ids = tables.get_tables(cfg.dataset_name)[0]
+    state = S.init_state(cfg, S.build_model(cfg, len(valid_ids)),
+                         S.make_optimizer(cfg), seed=2)
+    checkpoint.save_checkpoint(cfg.checkpoint_path, state, 3600.0, 0, 0)
+    del state
+    viz_dir = os.path.join(cfg.exp_path, 'viz')
+    row = {'card': smi, 'scenes': DATASET_SCENES, 'fixtures_s': fixture_s}
+    saved_cli = eval_cli.Evaluater
+    eval_cli.Evaluater = DatasetEvaluater
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        run, wall, launches = viz_cli(args + ['--produce_visualizations'],
+                                      smi, 'viz')
+        row['masks_per_scene'] = viz_check(run, viz_dir, names)
+        row.update(produce_visualizations_s=wall,
+                   predict_s=run['predict_s'], post_s=run['post_s'],
+                   host_oracle_and_writes_s=wall - run['predict_s']
+                   - run['post_s'], launches=launches)
+        shutil.rmtree(viz_dir)
+        one = names[1]
+        run, wall, _ = viz_cli(args + ['--predict_specific_scene', one], smi,
+                               'viz_one')
+        viz_check(run, viz_dir, [one])
+        row.update(predict_specific_scene_s=wall,
+                   predict_specific_scene_predict_s=run['predict_s'])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        eval_cli.Evaluater = saved_cli
+    log('[viz] full file set per scene, point counts, pred_instances.ply '
+        'colours bit-equal to pred_entries_to_results\' masks, bbs.npy '
+        'finite; ' + json.dumps(row))
+    return launches
+
+
+def reference_state_dict(cfg, seed=3):
+    """A seeded state_dict in the reference's (ME) layout for the config's
+    model, through the inverse of the converter's mapping (tests/
+    test_ckpt_convert.py): ME names, kernel rows in ME's offset order,
+    with a `module.` prefix, num_batches_tracked and a dead final* head."""
+    from box2mask_torch.convert import build_mapping, cubic_perm_me_to_ours
+    shapes = {k: tuple(v.shape) for k, v in S.build_model(
+        cfg, len(tables.get_tables(cfg.dataset_name)[0])).state_dict().items()}
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for t_key, f_path, kind in build_mapping(cfg.layers):
+        key = '.'.join(f_path)
+        if key not in shapes:
+            continue
+        val = (0.05 * rng.standard_normal(shapes[key])).astype(np.float32)
+        if f_path[-1] == 'var':
+            val = np.abs(val) + 0.5
+        if f_path[-1] == 'scale':
+            val = 1.0 + val
+        if kind == 'conv' and val.ndim == 3:
+            perm = cubic_perm_me_to_ours(round(val.shape[0] ** (1 / 3)))
+            val = val[np.argsort(perm)]
+        sd['module.' + t_key] = torch.from_numpy(val)
+    if len(sd) != len(shapes):
+        raise AssertionError(f'the mapping covers {len(sd)} of the model\'s '
+                             f'{len(shapes)} tensors')
+    sd['module.bn0.bn.num_batches_tracked'] = torch.tensor(7)
+    sd['module.final0.kernel'] = torch.zeros(96, 96)
+    return sd
+
+
+def convert_part(root, dev_np, device, smi):
+    """Phase 17 (b): the converted checkpoint restored by an Evaluater
+    equals from_flax(convert_state_dict(sd)) bit for bit, and its forward
+    on one fixture batch equals the forward on those weights built
+    directly, on the same kernels (deterministic algorithms)."""
+    from box2mask_torch import convert, convert_reference
+    os.environ['BOX2MASK_EXP_ROOT'] = os.path.join(root, 'exp_convert')
+    cfg = get_config(['--config', os.path.join(ROOT, 'configs',
+                                               'scannet.txt')])
+    t0 = time.perf_counter()
+    sd = reference_state_dict(cfg)
+    path = os.path.join(root, 'checkpoint_101h:54m:35s_366875.13.tar')
+    torch.save({'model_state_dict': sd, 'epoch': 4, 'iteration_num': 9},
+               path)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quiet(lambda: convert_reference.main(
+        ['--config', os.path.join(ROOT, 'configs', 'scannet.txt'),
+         '--torch_ckpt', path]), keep=('Converted', 'WARNING', 'NOTE'))
+    convert_s = time.perf_counter() - t0
+    os.remove(path)
+    ev = Evaluater(cfg)
+    quiet(ev._ensure_state, keep=('Loaded',))
+    want = convert.from_flax(*convert.convert_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, layers=cfg.layers))
+    got = ev.state.model.state_dict()
+    if ev.ckpt_name != checkpoint.checkpoint_name(366875.13)[:-5] or set(
+            got) != set(want) or not all(
+                torch.equal(got[k].cpu(), want[k]) for k in want):
+        raise AssertionError(f'the converted checkpoint ({ev.ckpt_name}) '
+                             'does not restore to from_flax(convert_state_'
+                             'dict(sd))')
+    direct = S.build_model(cfg, len(ev.valid_class_ids))
+    direct.load_state_dict(want)
+    batch = upload(dev_np, device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a = S.forward(ev.state.model, batch)
+        b = S.forward(direct, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in b):
+        raise AssertionError('the converted checkpoint\'s forward differs '
+                             'from the forward on the directly built weights')
+    log(f'[convert_reference] {len(sd)} reference tensors -> {len(want)} '
+        f'state_dict entries, restored bit-equal, forward bit-equal on '
+        f'{len(a)} heads; make {make_s:.1f} s, convert + save '
+        f'{convert_s:.1f} s on {smi}')
+    shutil.rmtree(cfg.exp_path, ignore_errors=True)
+    del ev, direct, a, b, sd, want, got
+    torch.cuda.empty_cache()
+
+
+def per_array_results(pipe, batches, ths):
+    """The pipeline's per-scene results with the batch uploaded array by
+    array (the route before the packed wire; held against it here only)."""
+    ths_t = torch.as_tensor(np.asarray(ths, np.float32), device=pipe.device)
+    out = {}
+    for dev_np, host in batches:
+        pred, full, o = pipe.infer(upload(dev_np, pipe.device), ths_t)
+        out.update(pipe._harvest(pred, full, o, host, ths_t)[0])
+    return out
+
+
+def wire_part(pipe, cfg, batches, device, smi):
+    """Phase 17 (c): unpack(pack(batch)) on the card equals the per-array
+    upload of every key, bit for bit; the wire each signature took; the
+    pipeline's per-scene results equal with either route (deterministic
+    algorithms); bytes and ms of each part beside the per-array upload."""
+    up = BatchUploader(device)
+    rows = []
+    for dev_np, _ in batches:
+        t0 = time.perf_counter()
+        buf, unpack = up.ship(up.pack(dev_np))
+        put_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        got, decode_ms = sync_ms(lambda: unpack(buf))
+        want, per_array_ms = sync_ms(lambda: upload(dev_np, device))
+        for k, v in dev_np.items():
+            if (got[k].shape != np.shape(v) or got[k].dtype != want[k].dtype
+                    or not torch.equal(got[k].reshape(-1),
+                                       want[k].reshape(-1))):
+                raise AssertionError(f'wire: {k} differs after unpack')
+        entry = up._cache[up.signature(dev_np)]
+        pack_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host_buf = entry['pack'](dev_np)
+            pack_ms.append((time.perf_counter() - t0) * 1e3)
+        pinned = torch.from_numpy(host_buf).pin_memory()
+        dev_buf = torch.empty_like(pinned, device=device)
+        _, h2d_ms = sync_ms(lambda: dev_buf.copy_(pinned, non_blocking=True))
+        raw = sum(np.asarray(v).nbytes for v in dev_np.values())
+        rows.append({'wire_bytes': int(entry['nbytes']), 'raw_bytes': raw,
+                     'pack_ms': statistics.median(pack_ms), 'put_ms': put_ms,
+                     'upload_ms': h2d_ms, 'decode_ms': decode_ms,
+                     'per_array_upload_ms': per_array_ms})
+    wires = sorted(set(up.wires().values()))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        packed = {}
+        for results, _, _, _ in pipe.run(None, batches, cfg.eval_ths):
+            packed.update(results)
+        plain = per_array_results(pipe, batches, cfg.eval_ths)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not same_results(packed, plain) or len(packed) != len(batches) * BATCH:
+        raise AssertionError('the packed pipeline\'s results differ from the '
+                             'per-array upload\'s')
+    log('[wire] unpack(pack(batch)) bit-equal to the per-array upload on '
+        'every key; pipeline results bit-equal with either route; ' +
+        json.dumps({'card': smi, 'wires': wires, 'pipeline_wire_bytes':
+                    pipe.wire_bytes, 'pipeline_pack_s': pipe.pack_s,
+                    'per_batch': rows}))
+    if any(w[0] != 'compact' for w in wires):
+        log(f'[wire] a signature fell back: {wires}')
+
+
+class PerArrayRoute:
+    """The pipeline's upload before the packed wire, as an uploader: pack
+    hands the batch on, ship uploads it array by array (for the end-to-end
+    comparison only)."""
+
+    def __init__(self, device):
+        self.device, self.pack_s, self.wire_bytes = device, 0.0, 0
+
+    def pack(self, dev):
+        return dev
+
+    def ship(self, dev):
+        return upload(dev, self.device), lambda batch: batch
+
+
+class InlinePackRoute(PerArrayRoute):
+    """The packed wire, packed on the main thread just before its ship (as
+    the JAX package's pipeline packs), for the end-to-end comparison."""
+
+    def __init__(self, up):
+        super().__init__(up.device)
+        self.up = up
+
+    def ship(self, dev):
+        return self.up.ship(self.up.pack(dev))
+
+
+WIRE_E2E_ORDER = ('per_array', 'packed_ahead', 'packed_inline',
+                  'packed_inline', 'packed_ahead', 'per_array')
+
+
+def wire_e2e(pipe, cfg, batches, smi, rounds=1):
+    """Inference scenes/s of the pipeline end to end over phase 3's batches,
+    twice over, with each upload route in turn (WIRE_E2E_ORDER, `rounds`
+    times; the host's load drifts, so routes compare within a round): the
+    per-array upload (the route before the packed wire), the packed wire
+    packed one batch ahead on the packer thread (the pipeline as shipped),
+    and packed on the main thread."""
+    shipped = pipe.uploader
+    routes = {'per_array': PerArrayRoute(pipe.device),
+              'packed_ahead': shipped,
+              'packed_inline': InlinePackRoute(shipped)}
+    runs = []
+    try:
+        for name in WIRE_E2E_ORDER * rounds:
+            pipe.uploader = routes[name]
+            torch.cuda.synchronize()
+            shipped.pack_s = 0.0
+            t0 = time.perf_counter()
+            n = sum(len(r) for r, _, _, _ in pipe.run(None, batches * 2,
+                                                      cfg.eval_ths))
+            torch.cuda.synchronize()
+            runs.append({'route': name,
+                         'scenes_s': n / (time.perf_counter() - t0),
+                         'scenes': n,
+                         'pack_s': shipped.pack_s})
+    finally:
+        pipe.uploader = shipped
+    by = {name: [r['scenes_s'] for r in runs if r['route'] == name]
+          for name in routes}
+    log('[wire_e2e] ' + json.dumps({
+        'card': smi, 'runs': runs,
+        'median_scenes_s': {k: statistics.median(v) for k, v in by.items()},
+        'best_scenes_s': {k: max(v) for k, v in by.items()}}))
+    return by
+
+
+def viz_phase(pipe, cfg, batches, device, smi):
+    """Phase 17. Returns the viz run's key_conv launches by mode."""
+    root = tempfile.mkdtemp(prefix='b2m_viz_')
+    saved_root = os.environ.get('BOX2MASK_EXP_ROOT')
+    os.environ['BOX2MASK_EXP_ROOT'] = os.path.join(root, 'exp')
+    t_phase = time.perf_counter()
+    try:
+        launches = viz_part(root, smi)
+        convert_part(root, batches[1][0], device, smi)
+        wire_part(pipe, cfg, batches[1:], device, smi)
+        wire_e2e(pipe, cfg, batches, smi)
+        log(f'[viz] phase 17 in {time.perf_counter() - t_phase:.1f} s')
+        return launches
+    finally:
+        if saved_root is None:
+            os.environ.pop('BOX2MASK_EXP_ROOT', None)
+        else:
+            os.environ['BOX2MASK_EXP_ROOT'] = saved_root
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3015,7 +3467,12 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     log('python', sys.version.split()[0], 'torch', torch.__version__,
         'cuda', torch.version.cuda)
+    t_start = time.perf_counter()
 
+    def phase(n):               # the script's seconds where phase n starts
+        log(f'[phase] {n} starts at {time.perf_counter() - t_start:.1f} s')
+
+    phase(1)
     # ---- 1. build
     t0 = time.perf_counter()
     _build.build_all()
@@ -3034,10 +3491,12 @@ def main():
         f'{[n for _, h in batches for n in h["num_voxels"]]}')
     g = torch.Generator().manual_seed(0)
 
+    phase(2)
     # ---- 2. kernels vs plain twins
     dev0 = upload(batches[1][0], device)
     rows = kernel_phase(dev0, g)
 
+    phase(3)
     # ---- 3. the slice
     model = S.build_model(cfg, len(valid_ids))
     kaiming_init_(model, torch.Generator().manual_seed(1))
@@ -3052,29 +3511,35 @@ def main():
                              'a plain twin or a neighbor-map conv')
     stage_phase(pipe, cfg, batches[1:], device, smi)
 
+    phase(4)
     # ---- 4. whole forward: kernels vs plain twins
     batch = upload(batches[1][0], device)
     pred_key = S.forward(model, batch)
     pred_t = with_twins(lambda: S.forward(model, batch))
     compare_forwards('forward', pred_key, pred_t, batch, 'kernel - twin')
 
+    phase(5)
     # ---- 5. weight-gradient kernels vs plain twins
     tcfg, tbatches = train_batches(smi)
     dw_rows = dw_phase(upload(tbatches[0][0], device), g)
 
+    phase(6)
     # ---- 6. the training slice
     state, tdev, train_launches, train_ms = train_phase(tcfg, tbatches,
                                                         device, smi)
 
+    phase(7)
     # ---- 7. one step's grads: kernels vs plain twins
     del state
     grads_phase(tcfg, replayed_state(tcfg, tdev, TRAIN_STEPS), tdev[1])
     del tdev
     torch.cuda.empty_cache()
 
+    phase(8)
     # ---- 8. neighbor-map kernels vs plain twins, and the map build
     nm_rows = nmap_kernel_phase(dev0, g, smi)
 
+    phase(9)
     # ---- 9. the neighbor-map slice (--key_conv off --pallas_conv on)
     ncfg = get_config(['--config', os.path.join(ROOT, 'configs',
                                                 'scannet.txt'),
@@ -3102,6 +3567,7 @@ def main():
     slice_phase(pipe, cfg, batches, smi, 'slice_again')
     slice_phase(npipe, ncfg, nbatches, smi, 'nmap_slice_again')
 
+    phase(10)
     # ---- 10. neighbor-map forward: kernels vs twins, vs the key path
     nbatch = upload(nbatches[1][0], device)
     pred_n = S.forward(nmodel, nbatch)
@@ -3113,19 +3579,24 @@ def main():
     del npipe, nmodel, nbatches, nbatch, pred_n, pred_nt
     torch.cuda.empty_cache()
 
+    phase(11)
     # ---- 11. the evaluation slice (python -m box2mask_torch.evaluate)
     eval_phase(smi)
 
+    phase(12)
     # ---- 12. the datasets: ScanNet, ARKitScenes, S3DIS readers and evals
     ds_launches = datasets_phase(smi)
 
+    phase(13)
     # ---- 13. training on the neighbor-map path
     nt_rows, nt_launches = nmap_train_phase(tbatches, device, smi)
 
+    phase(14)
     # ---- 14. training as users start it: the train CLI, warm start, the
     # Model facade and the quality gate
-    cli_phase(device, smi)
+    gate_launches = cli_phase(device, smi)['gate_launches']
 
+    phase(15)
     # ---- 15. data-parallel training: (a) one NCCL rank bit-equal to the
     # one-device step; (b) two gloo ranks on this card; (c) two NCCL ranks
     # on two cards, where there are two
@@ -3142,9 +3613,15 @@ def main():
     del tbatches
     torch.cuda.empty_cache()
 
+    phase(16)
     # ---- 16. spatial sharding: one ARKitScenes scene over two gloo ranks
     # on this card (and two NCCL ranks on two cards, where there are two)
     sp_launches = spatial_phase(device, smi)
+
+    phase(17)
+    # ---- 17. the visualizations at full width, a reference checkpoint
+    # converted without JAX, the compact upload wire
+    viz_launches = viz_phase(pipe, cfg, batches, device, smi)
 
     kernels = []
     # bf16 rows: the ScanNet preset's activations (phase 3's launches); f32
@@ -3155,7 +3632,10 @@ def main():
     # dp_launches: one rank's launches over phase 15 (b)'s DP_STEPS
     # data-parallel steps of its conv path (bf16 activations, as shipped);
     # spatial_launches: rank 0's over phase 16 (c)'s SP_STEPS spatial steps
-    # (f32 activations: the ARKitScenes preset; no neighbor-map kernel)
+    # (f32 activations: the ARKitScenes preset; no neighbor-map kernel);
+    # viz_launches: phase 17 (a)'s visualizations (the ScanNet preset, bf16
+    # activations); gate_launches: phase 14's quality gate (the synthetic
+    # preset, f32 activations)
     for r in rows:
         bf16 = r['mode'] == 'stem' or r['name'].endswith('bfloat16')
         f32 = not r['name'].endswith('bfloat16')
@@ -3167,7 +3647,9 @@ def main():
             'ms': r['ms'], 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': None,
             'dp_launches': dp_launches['key'][r['mode']] if bf16 else 0,
-            'spatial_launches': sp_launches[r['mode']] if f32 else 0})
+            'spatial_launches': sp_launches[r['mode']] if f32 else 0,
+            'viz_launches': viz_launches[r['mode']] if bf16 else 0,
+            'gate_launches': gate_launches[r['mode']] if f32 else 0})
     for r in dw_rows:
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': SRC,
@@ -3177,7 +3659,8 @@ def main():
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': None,
             'dp_launches': dp_launches['key'][r['mode']],
-            'spatial_launches': sp_launches[r['mode']]})
+            'spatial_launches': sp_launches[r['mode']],
+            'viz_launches': 0, 'gate_launches': gate_launches[r['mode']]})
     for r in nm_rows:
         if r['main']:
             kernels.append({
@@ -3188,7 +3671,8 @@ def main():
                 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                 'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
                 'dp_launches': dp_launches['nmap'][r['kernel']],
-                'spatial_launches': 0})
+                'spatial_launches': 0, 'viz_launches': 0,
+                'gate_launches': 0})
     for r in nt_rows:               # phase 13's shapes and launches
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': NMAP_SRC,
@@ -3198,7 +3682,8 @@ def main():
             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
             'bound_by': r['bound_by'], 'library_ms': r['library_ms'],
             'dp_launches': dp_launches['nmap'][r['kernel']],
-            'spatial_launches': 0})
+            'spatial_launches': 0, 'viz_launches': 0, 'gate_launches': 0})
+    phase('end')
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

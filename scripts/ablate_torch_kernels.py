@@ -32,7 +32,7 @@ import torch  # noqa: E402
 from box2mask_torch.config import get_config  # noqa: E402
 from box2mask_torch.datasets import batching, synthetic  # noqa: E402
 from box2mask_torch.engine import state as S  # noqa: E402
-from box2mask_torch.engine.infer import upload  # noqa: E402
+from box2mask_torch.engine.hostload import upload  # noqa: E402
 from box2mask_torch.sparse import _build, key_conv as KC  # noqa: E402
 from box2mask_torch.sparse import pallas_conv as PC  # noqa: E402
 

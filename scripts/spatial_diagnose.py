@@ -49,7 +49,7 @@ import chip_smoke as CS  # noqa: E402
 from box2mask_torch.convert import kaiming_init_  # noqa: E402
 from box2mask_torch.datasets import tables  # noqa: E402
 from box2mask_torch.engine import state as S  # noqa: E402
-from box2mask_torch.engine.infer import upload  # noqa: E402
+from box2mask_torch.engine.hostload import upload  # noqa: E402
 from box2mask_torch.nn.losses import compute_losses  # noqa: E402
 from box2mask_torch.nn.modules import MaskedBatchNorm  # noqa: E402
 from box2mask_torch.parallel import mesh as M  # noqa: E402

@@ -368,27 +368,44 @@ def test_cli_eval_training_sweeps_checkpoints(run, tmp_path, monkeypatch):
                                          'val/mAP25')]
 
 
+VIZ_FILES = {'rgb.ply', 'gt_instances.ply', 'gt_semantics.ply',
+             'pred_instances.ply', 'pred_semantics.ply', 'pred_bbs.ply',
+             'bbs.npy', 'viewer.html'}
+
+
 @pytest.mark.parametrize('extra,match', [
     ([], 'no CUDA device'),
     # spatial sharding (ROADMAP A13) spawns one NCCL rank per card
     pytest.param(['--spatial_shards', '2'], 'asks for 2 ranks.*CUDA cards',
                  id='extra1-A13'),
-    (['--produce_visualizations'], 'A20'),
-    (['--predict_specific_scene', 'synth10000_00'], 'A20')])
+    # the visualizations (ROADMAP A20) run on the CPU only when asked
+    pytest.param(['--produce_visualizations'], 'no CUDA device',
+                 id='extra2-A20'),
+    pytest.param(['--predict_specific_scene', 'synth10000_00'],
+                 'no CUDA device', id='extra3-A20')])
 def test_cli_refuses(tmp_path, monkeypatch, extra, match):
     """Without CUDA and without BOX2MASK_PLATFORM=cpu the CLI raises (no
-    quiet CPU run; --spatial_shards 2 needs 2 cards); the modes not ported
-    raise, naming the ROADMAP item."""
+    quiet CPU run; --spatial_shards 2 needs 2 cards). The visualization
+    modes too; asked for the CPU, they write each scene's files under
+    <exp>/viz: the 4 val scenes, or the one scene named."""
     monkeypatch.setenv('BOX2MASK_EXP_ROOT', str(tmp_path))
-    if 'A20' in match:
-        monkeypatch.setenv('BOX2MASK_PLATFORM', 'cpu')
-        exc = NotImplementedError
-    else:
-        monkeypatch.delenv('BOX2MASK_PLATFORM', raising=False)
-        assert not torch.cuda.is_available()
-        exc = RuntimeError
-    with pytest.raises(exc, match=match):
+    monkeypatch.delenv('BOX2MASK_PLATFORM', raising=False)
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match=match):
         cli.main(ARGS + extra)
+    if not {'--produce_visualizations', '--predict_specific_scene'} & set(
+            extra):
+        return
+    monkeypatch.setenv('BOX2MASK_PLATFORM', 'cpu')
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        cli.main(ARGS + extra)
+    viz = tmp_path / 'torch_eval' / 'viz'
+    scenes = (['synth10000_00'] if '--predict_specific_scene' in extra
+              else [f'synth1000{i}_00' for i in range(4)])
+    assert sorted(os.listdir(viz)) == scenes
+    for name in scenes:
+        assert set(os.listdir(viz / name)) == VIZ_FILES, name
 
 
 def read(path):
