@@ -1,0 +1,10 @@
+"""backward_ms.train: the median over the pool's batches of the backward, each
+run alone and synchronised after the window (ms)."""
+
+import statistics
+
+
+def read(obs):
+    if 'train_stages' not in obs:
+        return None
+    return statistics.median(s['backward_ms'] for s in obs['train_stages'])

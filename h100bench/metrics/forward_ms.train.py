@@ -1,0 +1,10 @@
+"""forward_ms.train: the median over the pool's batches of the train-mode
+forward and losses, each run alone and synchronised after the window (ms)."""
+
+import statistics
+
+
+def read(obs):
+    if 'train_stages' not in obs:
+        return None
+    return statistics.median(s['forward_ms'] for s in obs['train_stages'])
