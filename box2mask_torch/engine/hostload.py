@@ -58,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from box2mask_torch import tracing
 from box2mask_torch.sparse.keys import SENT_KEY
 
 _ALIGN = 128
@@ -82,11 +83,12 @@ def upload(dev_np, device):
     """numpy batch dict -> tensors on `device`, one copy per array (pinned
     staging on CUDA)."""
     out = {}
-    for k, v in dev_np.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == 'cuda':
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
+    with tracing.span('b2m.train.upload'):
+        for k, v in dev_np.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if device.type == 'cuda':
+                t = t.pin_memory().to(device, non_blocking=True)
+            out[k] = t
     return out
 
 
@@ -534,6 +536,10 @@ class BatchUploader:
     def pack(self, dev):
         """Pack the batch on the host, down the fallback chain where a codec
         refuses it: (its packer, the staging slot or None, the buffer)."""
+        with tracing.span('b2m.infer.pack'):
+            return self._pack(dev)
+
+    def _pack(self, dev):
         sig = self.signature(dev)
         entry = self._cache.get(sig)
         if entry is None:

@@ -18,6 +18,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from box2mask_torch import tracing
 from box2mask_torch.engine import state as S
 from box2mask_torch.engine.hostload import BatchUploader
 from box2mask_torch.postprocess.device_post import (
@@ -32,10 +33,10 @@ class FusedInferencePipeline:
     """Streaming fused inference over an iterator of (dev_np, host) batches.
     `run` yields per-batch `(results, out_np, dev_np, host)` IN ORDER, where
     `results` is the detection_to_masks-compatible dict {scene_name: {conf,
-    label_id, mask}} (point-level masks in eval mode). `pack_s`,
-    `wire_bytes` and `n_scenes` count the host packing seconds, the bytes
-    shipped and the scenes of the last `run`; `uploader.wires()` says which
-    wire each batch signature took."""
+    label_id, mask}} (point-level masks in eval mode). `pack_s` and
+    `wire_bytes` count the host packing seconds and the bytes shipped of
+    the last `run` (its scenes: tracing.counts());
+    `uploader.wires()` says which wire each batch signature took."""
 
     def __init__(self, cfg, valid_class_ids, is_foreground, model=None,
                  top_k=128, max_masks=MAX_MASKS, device=None):
@@ -51,7 +52,6 @@ class FusedInferencePipeline:
                                               is_foreground, max_masks)
         self._harvester = ThreadPoolExecutor(max_workers=3)
         self._packer = ThreadPoolExecutor(max_workers=1)
-        self.n_scenes = 0
 
     @property
     def pack_s(self):
@@ -64,17 +64,23 @@ class FusedInferencePipeline:
     @torch.no_grad()
     def infer(self, batch, ths):
         """One batch of device tensors -> (pred, full batch, stacked out)."""
-        full = S.ensure_maps(batch)
-        pred = self.model(full)
-        out = fused_postproc(self.core, self.cfg, pred, full, ths, self.top_k)
+        with tracing.span('b2m.infer.forward'):
+            full = S.ensure_maps(batch)
+            pred = self.model(full)
+        with tracing.span('b2m.infer.post'):
+            out = fused_postproc(self.core, self.cfg, pred, full, ths,
+                                 self.top_k)
         return pred, full, out
 
     def _harvest(self, pred, full, out, host, ths):
-        out_np = {k: v.cpu().numpy() for k, v in out.items()}
-        results = stacked_masks_to_results(
-            out_np, host, self.valid_class_ids,
-            post_fallback=self.post_full, pred=pred, dev_t=full, ths=ths,
-            native=self.cfg.use_native_host_ops)
+        with tracing.span('b2m.infer.harvest'):
+            with tracing.span('b2m.harvest.readback'):
+                out_np = {k: v.cpu().numpy() for k, v in out.items()}
+            with tracing.span('b2m.harvest.unpack'):
+                results = stacked_masks_to_results(
+                    out_np, host, self.valid_class_ids,
+                    post_fallback=self.post_full, pred=pred, dev_t=full,
+                    ths=ths, native=self.cfg.use_native_host_ops)
         return results, out_np
 
     def _ahead(self, batches):
@@ -97,7 +103,6 @@ class FusedInferencePipeline:
         if params is not None:
             self.model.load_state_dict(params)
         self.model.eval()
-        self.n_scenes = 0
         self.uploader.pack_s, self.uploader.wire_bytes = 0.0, 0
         ths_t = torch.as_tensor(np.asarray(ths, np.float32),
                                 device=self.device)
@@ -108,15 +113,24 @@ class FusedInferencePipeline:
                     'a host-maps batch (coords beyond the key packing range, '
                     'or --host_coordinate_maps) holds one scene: batch size '
                     '1, or a larger --voxel_size')
-            self.n_scenes += len(host['scene'])
-            buf, unpack = self.uploader.ship(packed.result())
-            pred, full, out = self.infer(unpack(buf), ths_t)
+            tracing.add('scenes', len(host['scene']))
+            with tracing.span('b2m.infer.wait_pack'):
+                packed = packed.result()
+            with tracing.span('b2m.infer.ship'):
+                buf, unpack = self.uploader.ship(packed)
+                batch = unpack(buf)
+            pred, full, out = self.infer(batch, ths_t)
             fut = self._harvester.submit(self._harvest, pred, full, out,
                                          host, ths_t)
             pending.append((fut, dev_np, host))
             while len(pending) > DEPTH:
-                f, d, h = pending.popleft()
-                yield (*f.result(), d, h)
+                yield self._harvested(pending.popleft())
         while pending:
-            f, d, h = pending.popleft()
-            yield (*f.result(), d, h)
+            yield self._harvested(pending.popleft())
+
+    @staticmethod
+    def _harvested(item):
+        f, dev_np, host = item
+        with tracing.span('b2m.infer.wait_harvest'):
+            results, out_np = f.result()
+        return results, out_np, dev_np, host

@@ -11,7 +11,8 @@ sparse/pallas_conv.py or the ops' torch formulation). The model holds the
 parameters and the BN running statistics (the JAX package's params and
 batch_stats), so the state is updated in place. The three phases are also
 callable one by one (forward_losses, backward, apply_update), for timing
-them apart.
+them apart; each is a span (b2m.train.forward, .backward, .optimizer), and
+a train_step is b2m.train.step around them.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import dataclasses
 
 import torch
 
+from box2mask_torch import tracing
 from box2mask_torch.convert import kaiming_init_
 from box2mask_torch.datasets.batching import DEVICE_NMAPS
 from box2mask_torch.engine.optim import Optimizer
@@ -127,29 +129,33 @@ def forward_losses(cfg, state, batch, bb_w, cs_w):
     ops' XLA formulation."""
     model = state.model
     model.train()
-    full = ensure_maps(batch)
-    return compute_losses(cfg, model(full), full, bb_w, cs_w)
+    with tracing.span('b2m.train.forward'):
+        full = ensure_maps(batch)
+        return compute_losses(cfg, model(full), full, bb_w, cs_w)
 
 
 def backward(ld):
-    ld['optimization_loss'].backward()
+    with tracing.span('b2m.train.backward'):
+        ld['optimization_loss'].backward()
 
 
 def apply_update(state, lr):
     """One optimizer step from the accumulated grads, then clear them."""
     params = state.params
-    state.tx.update(params, state.opt_state, lr)
-    for p in params:
-        p.grad = None
+    with tracing.span('b2m.train.optimizer'):
+        state.tx.update(params, state.opt_state, lr)
+        for p in params:
+            p.grad = None
     state.step += 1
     return state
 
 
 def train_step(cfg, state, batch, lr, bb_w, cs_w):
-    ld = forward_losses(cfg, state, batch, bb_w, cs_w)
-    backward(ld)
-    apply_update(state, lr)
-    return state, {k: v.detach() for k, v in ld.items()}
+    with tracing.span('b2m.train.step'):
+        ld = forward_losses(cfg, state, batch, bb_w, cs_w)
+        backward(ld)
+        apply_update(state, lr)
+        return state, {k: v.detach() for k, v in ld.items()}
 
 
 def make_train_step(cfg):

@@ -6,7 +6,8 @@ time-encoded checkpoint, cosine LR, epoch-head checkpoint / val loss blocks,
 the full val-set evaluation (mAP) at eval epochs, per-step timing and peak
 device memory (torch.cuda.max_memory_allocated in place of the JAX memory
 stats), val_min marker files, the --apple_warmstart warm start and, under
---profile_dir, a torch.profiler Chrome trace of train steps 10-14. Scalars
+--profile_dir, a torch.profiler Chrome trace of train steps 10-14 (every
+thread's host events, the port's b2m.* spans among them). Scalars
 go to `<exp>/metrics.jsonl`, one JSON object per line (ScalarLog, in place
 of the JAX package's tensorboard writer). It resumes from the port's
 checkpoints and from the JAX package's (engine/checkpoint.py).
@@ -39,6 +40,7 @@ import traceback
 import torch
 import torch.distributed as dist
 
+from box2mask_torch import tracing
 from box2mask_torch.config import needs_remat
 from box2mask_torch.datasets.loader import get_dataset
 from box2mask_torch.datasets.tables import get_tables
@@ -71,7 +73,8 @@ class ScalarLog:
 def _start_profiler(cuda):
     from torch.profiler import ProfilerActivity, profile
     prof = profile(activities=[ProfilerActivity.CPU]
-                   + ([ProfilerActivity.CUDA] if cuda else []))
+                   + ([ProfilerActivity.CUDA] if cuda else []),
+                   experimental_config=tracing.profiler_config())
     prof.start()
     return prof
 
@@ -318,15 +321,18 @@ class Trainer:
                 t1 = time.time()
                 self.state, ld = self.train_step(self.state, batch, lr, bb_w,
                                                  cs_w)
-                loss = float(ld['optimization_loss'])  # waits: true step time
-                step_time = time.time() - t1
-                self.training_time += time.time() - t0
+                with tracing.span('b2m.train.loss_read'):
+                    # waits: true step time
+                    loss = float(ld['optimization_loss'])
+                    t2 = time.time()
+                    for k, v in ld.items():
+                        epoch_sums[k] = epoch_sums.get(k, 0.0) + float(v)
+                step_time = t2 - t1
+                self.training_time += t2 - t0
                 self.iteration_num += 1
                 if self._profiler is not None and self.iteration_num == 15:
                     _stop_profiler(self._profiler, cfg.profile_dir)
                     self._profiler = None
-                for k, v in ld.items():
-                    epoch_sums[k] = epoch_sums.get(k, 0.0) + float(v)
                 epoch_n += 1
                 self.log(iteration=self.iteration_num,
                          batch_prep_time=prep_time,

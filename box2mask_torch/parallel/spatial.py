@@ -52,8 +52,8 @@ import warnings
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
+from box2mask_torch import tracing
 from box2mask_torch.datasets import tables
 from box2mask_torch.datasets.batching import map_semantics_to_idx
 from box2mask_torch.engine import state as S
@@ -72,7 +72,7 @@ from box2mask_torch.sparse.keys import AXIS_BITS, AXIS_MAX, SENT_KEY
 
 # this rank's halo exchanges and the bytes it sent in them since
 # reset_counts; their time is read under torch.profiler, where each
-# exchange is a 'spatial.halo_exchange' range (the level-G all-reduce a
+# exchange is a 'spatial.halo_exchange' span (the level-G all-reduce a
 # 'spatial.level_gather' one, the pool's a 'spatial.pool_all_reduce')
 HALO = {'exchanges': 0, 'bytes': 0}
 
@@ -507,7 +507,7 @@ def exchange(to_right, to_left, group):
     D, r = dist.get_world_size(group), dist.get_rank(group)
     device = to_right.device
     host = device.type != 'cpu' and dist.get_backend(group) != 'nccl'
-    with record_function('spatial.halo_exchange'):
+    with tracing.span('spatial.halo_exchange'):
         if host:
             to_right, to_left = to_right.cpu(), to_left.cpu()
         to_right, to_left = to_right.contiguous(), to_left.contiguous()
@@ -612,7 +612,7 @@ def gather_to_replicated(x, gather_rows, group):
     ps, C = x.shape
     buf = torch.cat([x.new_zeros(r * ps, C), x,
                      x.new_zeros((D - r - 1) * ps, C)])
-    with record_function('spatial.level_gather'):
+    with tracing.span('spatial.level_gather'):
         flat = all_reduce_sum(buf, group)
     flat = torch.cat([flat, x.new_zeros(1, C)])
     return flat[gather_rows.long()]
@@ -800,14 +800,14 @@ class SpatialSelectionNet(SelectionNet):
                 # a segment with no local rows gives 0, as one device's
                 # segment_max does for an empty segment
                 part = ops.segment_max(x, pool_ids, S_pad)
-                with record_function('spatial.pool_all_reduce'):
+                with tracing.span('spatial.pool_all_reduce'):
                     pooled = all_reduce_max(part, group)
             else:
                 s = ops.segment_sum(x.float(), pool_ids, S_pad)
                 c = ops.segment_sum(torch.ones(x.shape[0], 1,
                                                device=x.device),
                                     pool_ids, S_pad)
-                with record_function('spatial.pool_all_reduce'):
+                with tracing.span('spatial.pool_all_reduce'):
                     s = all_reduce_sum(s, group)
                     c = all_reduce_sum(c, group)
                 pooled = s / torch.clamp(c, min=1.0)

@@ -30,6 +30,7 @@ import warnings
 import numpy as np
 import torch
 
+from box2mask_torch import tracing
 from box2mask_torch.native import native_unpack_masks
 from box2mask_torch.postprocess.nms import SYNC_EVERY, nms_clustering
 
@@ -79,8 +80,9 @@ def make_core(cfg, valid_class_ids, is_foreground, max_masks):
         fg = (fg_lut[sem_idx] & batch['seg_valid']
               & (batch['batch_ids'] == scene_idx))
 
-        reps, heatmaps, repv, cap_hit = nms_clustering(
-            boxes, fg, cluster_th, max_clusters=max_masks)
+        with tracing.span('b2m.post.cluster'):
+            reps, heatmaps, repv, cap_hit = nms_clustering(
+                boxes, fg, cluster_th, max_clusters=max_masks)
         rep_scores = boxes[reps, 0]
         keep0 = repv & (rep_scores > score_th)
         heatmaps = heatmaps * fg[None, :].float()
@@ -105,15 +107,22 @@ def make_core(cfg, valid_class_ids, is_foreground, max_masks):
         rank = R - torch.arange(R, device=dev)
         remaining = keep0
         keep = torch.zeros(R, dtype=torch.bool, device=dev)
-        for it in range(R):        # greedy: smallest remaining index first
-            if it % SYNC_EVERY == 0 and not bool(remaining.any()):
-                break
-            active = remaining.any()
-            top = torch.argmax(torch.where(remaining, rank, 0))
-            keep[top] = keep[top] | active
-            row = iou[top].clone()
-            row[top] = 1.0
-            remaining = remaining & (row <= mask_nms_th)
+        with tracing.span('b2m.post.mask_nms'):
+            steps = syncs = 0
+            for it in range(R):    # greedy: smallest remaining index first
+                if it % SYNC_EVERY == 0:
+                    syncs += 1
+                    if not bool(remaining.any()):
+                        break
+                steps += 1
+                active = remaining.any()
+                top = torch.argmax(torch.where(remaining, rank, 0))
+                keep[top] = keep[top] | active
+                row = iou[top].clone()
+                row[top] = 1.0
+                remaining = remaining & (row <= mask_nms_th)
+            tracing.add('mask_nms_steps', steps)
+            tracing.add('post_syncs', syncs)
 
         vox_sem = sem_idx[pool_c]
         onehot = torch.nn.functional.one_hot(vox_sem, fg_np.shape[0]).float()
@@ -231,9 +240,10 @@ def stacked_masks_to_results(out_np, host, valid_class_ids,
                               f'only {cap} packed rows shipped; truncated')
                 n = cap
             else:
-                out = post_fallback(pred, dev_t, si, ths)
-                results.update(device_masks_to_results(
-                    out, host, valid_class_ids, si, native))
+                with tracing.span('b2m.harvest.fallback'):
+                    out = post_fallback(pred, dev_t, si, ths)
+                    results.update(device_masks_to_results(
+                        out, host, valid_class_ids, si, native))
                 continue
         v2p = np.asarray(host['vox2point'][si])
         if seg_level:

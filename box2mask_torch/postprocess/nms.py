@@ -7,7 +7,8 @@ Greedy by score: each representative's IoU row against ALL boxes is its
 cluster heatmap (its own entry forced to 1); boxes with IoU > cluster_th join
 its cluster. The loop is bounded by `max_clusters`. Each step is masked, so
 steps after the last cluster change nothing, and the host reads the "any box
-left" flag only every `SYNC_EVERY` steps instead of every step.
+left" flag only every `SYNC_EVERY` steps instead of every step; the steps
+and the reads are counted (tracing).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from box2mask_torch import tracing
 from box2mask_torch.postprocess import iou as I
 from box2mask_torch.postprocess.iou import one_vs_all_ious
 
@@ -35,9 +37,13 @@ def nms_clustering(boxes, valid, cluster_th, max_clusters=256):
     repv = torch.zeros(max_clusters, dtype=torch.bool, device=dev)
     remaining = valid.clone()
     ar = torch.arange(N, device=dev)
+    steps = syncs = 0
     for r in range(max_clusters):
-        if r % SYNC_EVERY == 0 and not bool(remaining.any()):
-            break
+        if r % SYNC_EVERY == 0:
+            syncs += 1
+            if not bool(remaining.any()):
+                break
+        steps += 1
         active = remaining.any()
         top = torch.argmax(torch.where(remaining, scores, float('-inf')))
         row = one_vs_all_ious(geo[top], geo)
@@ -46,6 +52,8 @@ def nms_clustering(boxes, valid, cluster_th, max_clusters=256):
         heatmaps[r] = torch.where(active, row, 0.0)
         repv[r] = active
         remaining = remaining & ((row <= cluster_th) | ~active)
+    tracing.add('cluster_steps', steps)
+    tracing.add('post_syncs', syncs)
     return reps, heatmaps, repv, remaining.any()
 
 

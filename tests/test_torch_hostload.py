@@ -39,6 +39,7 @@ from box2mask_tpu.datasets import tables as JT
 from box2mask_tpu.datasets import voxelize as JV
 from box2mask_tpu.engine import hostload as JH
 from box2mask_torch import config as PC
+from box2mask_torch import tracing
 from box2mask_torch.convert import kaiming_init_
 from box2mask_torch.datasets import batching as PB
 from box2mask_torch.datasets import synthetic as PSyn
@@ -300,9 +301,10 @@ def test_pipeline_packs_one_batch_ahead():
     pipe.infer = infer
     pipe._harvest = lambda pred, full, out, host, ths: ({}, {})
     hosts = [{'scene': [{'name': f's{i}'}]} for i in range(len(devs))]
+    tracing.reset_counts()
     got = [h for _, _, _, h in pipe.run(None, zip(devs, hosts),
                                         cfg.eval_ths)]
-    assert got == hosts and pipe.n_scenes == len(devs)
+    assert got == hosts and tracing.counts()['scenes'] == len(devs)
     assert packed_on_main == [False] * len(devs)
     assert ahead == [True] * len(devs)
     for dev, batch in zip(devs, seen):
@@ -326,9 +328,10 @@ def test_pipeline_packed_equals_per_array():
                                   device='cpu')
     ths = torch.tensor(cfg.eval_ths)
     got = {}
+    tracing.reset_counts()
     for results, _, _, _ in pipe.run(None, batches, cfg.eval_ths):
         got.update(results)
-    assert pipe.n_scenes == 6 and pipe.pack_s > 0
+    assert tracing.counts()['scenes'] == 6 and pipe.pack_s > 0
     assert pipe.wire_bytes == 3 * pipe.uploader._cache[
         pipe.uploader.signature(batches[0][0])]['nbytes']
     assert set(pipe.uploader.wires().values()) == {('compact', True, True)}

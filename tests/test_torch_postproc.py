@@ -23,6 +23,7 @@ from box2mask_tpu.engine import state as JS
 from box2mask_tpu.engine.infer import FusedInferencePipeline as JaxPipeline
 from box2mask_tpu.postprocess import device_post as JDP
 from box2mask_torch import config as PC
+from box2mask_torch import tracing
 from box2mask_torch.convert import from_flax
 from box2mask_torch.datasets import batching as PB
 from box2mask_torch.datasets import synthetic as PSyn
@@ -193,8 +194,9 @@ def pipelines_vs_jax(extra, seeds, jax_device_maps=None):
                 params, stats, jbatches, jc.eval_ths)]
         pipe = FusedInferencePipeline(pc, VALID_IDS, IS_FG, top_k=16,
                                       max_masks=64, device='cpu')
+        tracing.reset_counts()
         out = list(pipe.run(from_flax(params, stats), pbatches, pc.eval_ths))
-    assert pipe.n_scenes == sum(len(s) for s in seeds)
+    assert tracing.counts()['scenes'] == sum(len(s) for s in seeds)
     n_masks = 0
     for (pres, out_np, _, host), jr in zip(out, jres):
         assert list(pres) == list(jr) == [s['name'] for s in host['scene']]
