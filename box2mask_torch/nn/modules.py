@@ -9,6 +9,7 @@ and batch norm keeps `scale`, `bias` and the running `mean` and `var`.
 
 `act_dtype` is the dtype activations leave a module in (f32, or bf16 under
 --bf16_acts); convs accumulate in f32 and BN normalizes in f32 either way.
+BN takes the ReLU and the residual add that follow it into its own op.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from box2mask_torch.sparse import ops
+from box2mask_torch.sparse import masked_bn, ops
 
 
 class SparseConv(nn.Module):
@@ -78,8 +79,9 @@ class MaskedBatchNorm(nn.Module):
     backward (nn/unet.py) turns it off while it recomputes, as flax's
     nn.remat discards the mutations of its recomputation. With a process
     `group` the batch moments are those of every rank's valid rows
-    (ops.masked_moments: SyncBatchNorm, the JAX package's axis_name), so
-    the running statistics move alike on every rank."""
+    (SyncBatchNorm, the JAX package's axis_name), so the running statistics
+    move alike on every rank. The call site adds `residual` and applies
+    ReLU where the network does (`relu`): one op, sparse/masked_bn.py."""
 
     def __init__(self, features, momentum=0.1, epsilon=1e-5,
                  act_dtype=torch.float32, group=None):
@@ -94,19 +96,12 @@ class MaskedBatchNorm(nn.Module):
         self.group = group
         self.update_stats = True
 
-    def forward(self, x, valid, n_valid):
-        if self.training:
-            mean, var, n = ops.masked_moments(x, valid, n_valid, self.group)
-        else:
-            mean, var = self.mean, self.var
-        if self.training and self.update_stats:
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                self.mean.mul_(1 - m).add_(m * mean)
-                self.var.mul_(1 - m).add_(m * unbiased)
-        inv = torch.rsqrt(var + self.epsilon)
-        return ((x - mean) * (inv * self.scale) + self.bias).to(self.act_dtype)
+    def forward(self, x, valid, n_valid, relu=False, residual=None):
+        return masked_bn.bn_act(
+            x, valid, n_valid, self.scale, self.bias, self.mean, self.var,
+            training=self.training, update_stats=self.update_stats,
+            momentum=self.momentum, eps=self.epsilon, relu=relu,
+            residual=residual, out_dtype=self.act_dtype, group=self.group)
 
 
 class BasicBlock(nn.Module):
@@ -130,15 +125,14 @@ class BasicBlock(nn.Module):
             self.downsample_bn = MaskedBatchNorm(features, **bn)
         else:
             self.downsample_conv = None
-        self.act_dtype = ad
 
     def forward(self, x, op, valid, n_valid):
-        out = self.SparseConv_0(x, op)
-        out = torch.relu(self.MaskedBatchNorm_0(out, valid, n_valid))
+        out = self.MaskedBatchNorm_0(self.SparseConv_0(x, op), valid, n_valid,
+                                     relu=True)
         out = self.SparseConv_1(out, op)
-        out = self.MaskedBatchNorm_1(out, valid, n_valid)
         residual = x
         if self.downsample_conv is not None:
             residual = self.downsample_bn(self.downsample_conv(x), valid,
                                           n_valid)
-        return torch.relu(out + residual.to(self.act_dtype))
+        return self.MaskedBatchNorm_1(out, valid, n_valid, relu=True,
+                                      residual=residual)

@@ -161,20 +161,20 @@ class SelectionNet(nn.Module):
 
         x = self.stem_conv(batch['vox_features'],
                            ops.conv_operand(batch, 0, '5', self.stem_kernel))
-        x = torch.relu(self.stem_bn(x, batch['valid0'], batch['num0']))
+        x = self.stem_bn(x, batch['valid0'], batch['num0'], relu=True)
         skips = [x]
         for l in range(1, 8):
             x = getattr(self, f'down{l}_conv')(
                 x, ops.conv_operand(batch, l - 1, 'd'))
             x = getattr(self, f'down{l}_bn')(x, batch[f'valid{l}'],
-                                             batch[f'num{l}'])
-            x = block_stage(torch.relu(x), l, f'enc{l}')
+                                             batch[f'num{l}'], relu=True)
+            x = block_stage(x, l, f'enc{l}')
             skips.append(x)
         for l in range(6, -1, -1):
             x = getattr(self, f'up{l}_tr')(x, ops.up_operand(batch, l))
             x = getattr(self, f'up{l}_bn')(x, batch[f'valid{l}'],
-                                           batch[f'num{l}'])
-            x = torch.cat([torch.relu(x), skips[l]], dim=-1)
+                                           batch[f'num{l}'], relu=True)
+            x = torch.cat([x, skips[l]], dim=-1)
             x = block_stage(x, l, f'dec{l}')
 
         outputs = {}

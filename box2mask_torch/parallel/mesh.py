@@ -8,9 +8,10 @@ process drives one card (rank r on cuda:r, NCCL), as the reference's
 mp.spawn + DDP did, and the same step is written with explicit collectives:
 
   * every MaskedBatchNorm of a model built with the process group sums its
-    moments over the ranks through one differentiable all-reduce
-    (sparse/ops.masked_moments), whose backward all-reduces the cotangent,
-    as shard_map transposes psum (check_vma=False);
+    moments over the ranks through one all-reduce in its forward
+    (sparse/masked_bn.py), and its backward all-reduces the two sums the
+    moments' gradient needs, as shard_map transposes psum
+    (check_vma=False);
   * after the backward, one all-reduce of every grad, flattened into one
     buffer, divided by the world size (the pmean), then the loss dict the
     same way; then the optimizer update on every rank.

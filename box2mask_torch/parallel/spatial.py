@@ -758,7 +758,7 @@ class SpatialSelectionNet(SelectionNet):
 
         x = self.stem_conv(batch['sp_feats'], sp_kc(0, '5') if has_kc(0)
                            else sp_op(0, batch['sp_nmap5']))
-        x = torch.relu(self.stem_bn(x, *vn(0)))
+        x = self.stem_bn(x, *vn(0), relu=True)
         skips = [x]
         for l in range(1, 8):
             if l <= G and has_kc(l - 1):
@@ -772,7 +772,7 @@ class SpatialSelectionNet(SelectionNet):
             x = getattr(self, f'down{l}_conv')(x, nbr)
             if l == G:
                 x = gather_to_replicated(x, batch['sp_gather_rows'], group)
-            x = torch.relu(getattr(self, f'down{l}_bn')(x, *vn(l)))
+            x = getattr(self, f'down{l}_bn')(x, *vn(l), relu=True)
             x = blocks(x, l, f'enc{l}')
             skips.append(x)
 
@@ -786,7 +786,7 @@ class SpatialSelectionNet(SelectionNet):
                                  batch[f'sp_slabR{l + 1}'], group)
                 op = (batch[f'sp_up_parent{l}'], batch[f'sp_up_widx{l}'])
             x = getattr(self, f'up{l}_tr')(xc, op)
-            x = torch.relu(getattr(self, f'up{l}_bn')(x, *vn(l)))
+            x = getattr(self, f'up{l}_bn')(x, *vn(l), relu=True)
             x = torch.cat([x, skips[l]], dim=-1)
             x = blocks(x, l, f'dec{l}')
 

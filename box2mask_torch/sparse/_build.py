@@ -27,6 +27,7 @@ ARCH = 'arch=compute_90a,code=sm_90a'
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # exported C functions per source: name -> argtypes (every function returns
 # the cudaGetLastError() code after its launch)
 SIGNATURES = {
@@ -39,6 +40,15 @@ SIGNATURES = {
     'nmap_conv': {
         'b2m_nmap_conv': [_P] * 5 + [_I] * 5 + [_P],
         'b2m_gather_rows': [_P] * 3 + [_I] * 3 + [_P],
+    },
+    'masked_bn': {
+        'b2m_bn_sums': [_P] * 3 + [_I] * 4 + [_P],
+        'b2m_bn_reduce': [_P, _I, _I] + [_P] * 5 + [_I] * 2 + [_F] * 3
+        + [_P],
+        'b2m_bn_finalize': [_P, _I] + [_P] * 3 + [_I] + [_F] * 3 + [_P],
+        'b2m_bn_norm': [_P] * 7 + [_I] * 6 + [_F, _P],
+        'b2m_bn_bwd_sums': [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+        'b2m_bn_dx': [_P] * 12 + [_I] * 7 + [_F, _I, _P],
     },
 }
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from box2mask_torch.sparse import key_conv as KC
+from box2mask_torch.sparse import masked_bn
 from box2mask_torch.sparse import pallas_conv as PC
 
 # calls of the XLA formulations, per op
@@ -141,26 +142,17 @@ def linear(x, w, b=None, compute_dtype=torch.bfloat16):
 
 
 def masked_moments(x, valid, n_valid, group=None):
-    """Mean/variance over valid rows only (padding excluded exactly). With a
-    process group, the sums s1, s2 and n are summed over its ranks (the JAX
+    """Mean/variance over valid rows only (padding excluded exactly): the
+    formula of sparse/masked_bn.moments, differentiable. With a process
+    group, the sums s1, s2 and n are summed over its ranks (the JAX
     package's psum over the mesh axis: SyncBatchNorm) by one all-reduce
     that autograd differentiates: its backward all-reduces the cotangent,
-    as the transpose of psum does, so each rank's grads take the other
-    ranks' losses through the shared statistics."""
-    m = valid.float()[:, None]
-    xf = x.float()
-    s1 = (xf * m).sum(0)
-    s2 = (xf.square() * m).sum(0)
-    n = n_valid.float().reshape(1)
-    if group is not None:
-        from torch.distributed.nn.functional import all_reduce
-        c = s1.shape[0]
-        s1, s2, n = all_reduce(torch.cat([s1, s2, n]),
-                               group=group).split([c, c, 1])
-    n = torch.clamp(n.reshape(()), min=1.0)
-    mean = s1 / n
-    var = torch.clamp(s2 / n - mean.square(), min=0.0)
-    return mean, var, n
+    as the transpose of psum does. The network's BN takes its moments
+    inside masked_bn.bn_act; this is their reference with autograd."""
+    from torch.distributed.nn.functional import all_reduce
+    mean, v0, n = masked_bn.moments(
+        x, valid, n_valid, group, lambda t, g: all_reduce(t, group=g))
+    return mean, torch.clamp(v0, min=0.0), n
 
 
 def segment_sum(x, seg_ids, num_segments):

@@ -57,8 +57,8 @@ def profiler_config():
 
 def _kernel_modules():
     from box2mask_torch.parallel import spatial
-    from box2mask_torch.sparse import key_conv, ops, pallas_conv
-    return key_conv, pallas_conv, ops, spatial
+    from box2mask_torch.sparse import key_conv, masked_bn, ops, pallas_conv
+    return key_conv, pallas_conv, masked_bn, ops, spatial
 
 
 def reset_counts():
@@ -72,15 +72,18 @@ def reset_counts():
 
 def counts():
     """Every counter of the port: this module's, then the kernel launches
-    and plain-twin calls per mode, the ops' torch formulation calls and the
-    spatial halo exchanges."""
-    key_conv, pallas_conv, ops, spatial = _kernel_modules()
+    and plain-twin calls per mode (masked_bn: op calls, each 2-3
+    launches), the ops' torch formulation calls and the spatial halo
+    exchanges."""
+    key_conv, pallas_conv, masked_bn, ops, spatial = _kernel_modules()
     with _LOCK:
         out = dict(COUNTS)
     out.update(key_conv=dict(key_conv.LAUNCHES),
                key_conv_plain=dict(key_conv.PLAIN_CALLS),
                nmap_conv=dict(pallas_conv.LAUNCHES),
                nmap_conv_plain=dict(pallas_conv.PLAIN_CALLS),
+               masked_bn=dict(masked_bn.LAUNCHES),
+               masked_bn_plain=dict(masked_bn.PLAIN_CALLS),
                torch_formulation=dict(ops.XLA_CALLS),
                halo=dict(spatial.HALO))
     return out

@@ -5,6 +5,9 @@ Phases, in order; any failure exits non-zero:
   1. build the CUDA kernels of box2mask_torch/csrc with nvcc;
   2. each kernel mode against its plain PyTorch twin on the card, at the
      main path's shapes (keys of 4 ScanNet-scale synthetic scenes), timed;
+     the masked BN op's kernels at the level-0 train and eval shapes
+     against the twin's torch ops and their byte bounds (`[kernel] bn_*`,
+     `[bn_op]`);
   3. the slice: FusedInferencePipeline.run over 3 batches of 4 unique
      ScanNet-scale scenes (configs/scannet.txt: layers 2, bf16 activations,
      cin 6, 4 heads, segment pooling) with seeded kaiming weights; every
@@ -23,11 +26,13 @@ Phases, in order; any failure exits non-zero:
      2 unique batches of 8 labelled ScanNet-scale synthetic scenes from the
      port's loader, seeded kaiming weights, 6 train steps each with its own
      learning rate; every loss finite, every kernel mode launched (dw and
-     stem dw included), no twin ran; then the step split into forward,
+     stem dw included), the BN op through its kernels once per BN forward
+     and backward, no twin ran; then the step split into forward,
      backward and optimizer (each run alone and synchronized), peak memory,
      and one step under torch.profiler;
-  7. one step's gradients with the kernels against the plain twins'
-     backward on the kernels' own forward, and against the twins' whole
+  7. one step's gradients with the kernels against the plain twins' (the
+     BN op's too) backward on the kernels' own forward, and against the
+     twins' whole
      step, per parameter tensor, on the state that a warm-up and
      TRAIN_STEPS steps of phase 6's schedule reach from its initial
      weights, re-run under deterministic algorithms (`replayed_state`), so
@@ -220,6 +225,7 @@ from box2mask_torch.engine.train import Trainer, warmstart_fresh_params
 from box2mask_torch.model import Model
 from box2mask_torch.nn.flops import estimate_forward_flops
 from box2mask_torch.nn.losses import compute_losses
+from box2mask_torch.nn.modules import MaskedBatchNorm
 from box2mask_torch.parallel import mesh as M
 from box2mask_torch.parallel import spatial as SP
 from box2mask_torch.postprocess import device_post as DP
@@ -227,6 +233,7 @@ from box2mask_torch.postprocess.device_post import (fused_postproc,
                                                     stacked_masks_to_results)
 from box2mask_torch.runtime import resolve_device
 from box2mask_torch.sparse import _build, key_conv as KC
+from box2mask_torch.sparse import masked_bn as MB
 from box2mask_torch.sparse import ops, pallas_conv as PC
 from box2mask_torch.sparse.keys import SENT_KEY
 
@@ -259,6 +266,11 @@ TPU_KERNEL = 'box2mask_tpu/sparse/key_conv.py:116'     # _kernel
 TPU_STEM = 'box2mask_tpu/sparse/key_conv.py:542'       # _stem_kernel
 TPU_DW = 'box2mask_tpu/sparse/key_conv.py:814'         # _dw_kernel
 TPU_STEM_DW = 'box2mask_tpu/sparse/key_conv.py:557'    # _stem_dw_kernel
+BN_SRC = 'box2mask_torch/csrc/masked_bn.cu'
+SLICE_BN_CALLS = {}             # slice_phase tag -> the BN op's eval calls
+# the BN op's kernels; the JAX package leaves batch norm to XLA
+BN_KERNELS = ('bn_sums_kernel', 'bn_reduce_kernel', 'bn_norm_kernel',
+              'bn_bwd_sums_kernel', 'bn_dx_kernel')
 # one step's grads, kernels vs twins: |diff| / |twin| over all tensors (L2)
 # and the cosine of the two grad vectors, two ways. Each launch of the step
 # is held to its twin on its own inputs as well, to the kernel tolerances
@@ -448,6 +460,95 @@ def kernel_phase(dev, g):
                 f'({row["bound_by"]}; {nbytes} B, {flops:.3e} FLOP); {occ}')
             rows.append(row)
     return rows
+
+
+def bn_kernel_phase(g):
+    """The masked BN op's kernels at the level-0 shapes of the ScanNet
+    preset (bf16 activations, C = 96): the train step's BasicBlock BN_1
+    with residual and ReLU (8 scenes, 1,048,576 rows; forward and backward)
+    and the eval forward (4 scenes, 524,288 rows): each kernel's device time
+    (torch.profiler) against its byte bound at HBM_BYTES_S, and the whole
+    op against the twin's torch ops on the card (held within one bf16 step
+    of the normalized value plus one of y, as the card tests)."""
+    rows_out = []
+    c = 96
+    for mode, rows in (('train', 1 << 20), ('eval', 1 << 19)):
+        n_s = torch.randint(110_000, 125_000, (rows // 131072,), generator=g)
+        valid = (torch.arange(131072)[None, :] < n_s[:, None]).reshape(-1)
+        n_valid = int(valid.sum())
+        x = (torch.randn(rows, c, generator=g) * 2 + 0.5).to('cuda')
+        x = x.to(torch.bfloat16)
+        res = torch.randn(rows, c, generator=g).to('cuda', torch.bfloat16)
+        gout = torch.randn(rows, c, generator=g).to('cuda', torch.bfloat16)
+        valid, nv = valid.to('cuda'), torch.tensor(n_valid, dtype=torch.int32,
+                                                   device='cuda')
+        scale = torch.rand(c, generator=g).to('cuda') + 0.5
+        bias = torch.randn(c, generator=g).to('cuda') * 0.1
+        rm, rv = torch.zeros(c, device='cuda'), torch.ones(c, device='cuda')
+        cfg = MB.Cfg(mode == 'train', True, 0.1, 1e-5, True, torch.bfloat16,
+                     None)
+        fwd = lambda: MB.forward_cuda(x, scale, bias, res, valid, nv,  # noqa
+                                      rm, rv, cfg)
+        fwd_twin = lambda: MB.forward_plain(x, scale, bias, res, valid,  # noqa
+                                            nv, rm, rv, cfg)
+        y, st = fwd()
+        y_t, st_t = fwd_twin()
+        mean, inv = ((st_t[:c], st_t[c:2 * c]) if st_t is not None
+                     else (rm, torch.rsqrt(rv + 1e-5)))
+        z = (x.float() - mean) * (inv * scale) + bias
+        err = (y.float() - y_t.float()).abs()
+        tol = (bf16_ulp(z) + torch.maximum(bf16_ulp(y.float()),
+                                           bf16_ulp(y_t.float()))
+               + F32_TOL * z.abs().max())
+        if not bool((err <= tol).all()) or not torch.isfinite(y).all():
+            raise AssertionError(f'bn {mode}: max err {err.max()}')
+        e2 = 2 * rows * c               # bytes of one bf16 rows x c tensor
+        parts = [('bn_sums_kernel', n_valid * c * 2 + rows, fwd)] if (
+            mode == 'train') else []
+        parts.append(('bn_norm_kernel', 3 * e2, fwd))
+        twin_fwd_ms = time_ms(fwd_twin)
+        bwd_ms = bwd_twin_ms = None
+        if mode == 'train':
+            bwd = lambda: MB.backward_cuda(gout, x, y, valid, scale, st,  # noqa
+                                           rm, rv, cfg, need_res=True)
+            bwd_twin = lambda: MB.backward_plain(gout, x, y, valid,  # noqa
+                                                 scale, st, rm, rv, cfg)
+            dx, _, _, _ = bwd()
+            dx_t = bwd_twin()[0]
+            derr = (dx.float() - dx_t.float()).abs()
+            dscale = dx_t.float().abs().max()
+            dtol = torch.maximum(bf16_ulp(dx.float()),
+                                 bf16_ulp(dx_t.float())) + F32_TOL * dscale
+            if not bool((derr <= dtol).all()):
+                raise AssertionError(f'bn dx: max err {derr.max()}')
+            parts += [('bn_bwd_sums_kernel', 3 * e2, bwd),
+                      ('bn_dx_kernel', 5 * e2 + rows, bwd)]
+            bwd_ms, bwd_twin_ms = time_ms(bwd), time_ms(bwd_twin)
+        op_ms = time_ms(fwd)
+        traced = {id(f): traced_ms(f, 10) for _, _, f in parts}
+        for name, nbytes, fn in parts:
+            t = traced[id(fn)]
+            ms = t[name][0]
+            if name in ('bn_sums_kernel', 'bn_bwd_sums_kernel'):
+                ms += t['bn_reduce_kernel'][0]    # the fixed-order reduce
+            bound_ms = nbytes / HBM_BYTES_S * 1e3
+            fwd_part = name in ('bn_sums_kernel', 'bn_norm_kernel')
+            twin_ms = twin_fwd_ms if fwd_part else bwd_twin_ms
+            row = dict(name=f'{name}_{mode}_l0_{c}_bfloat16', mode=mode,
+                       kernel=name, max_abs_err=float(err.max()), ms=ms,
+                       plain_ms=twin_ms, bound_ms=bound_ms, bound_by='bytes',
+                       bytes=nbytes)
+            log(f'[kernel] {row["name"]}: device {ms:.4f} ms (sums: with '
+                f'their reduce), bound {bound_ms:.4f} ms ({nbytes} B at '
+                f'{HBM_BYTES_S:.3g} B/s), twin (torch ops, the whole '
+                f'{"forward" if fwd_part else "backward"}) {twin_ms:.3f} ms')
+            rows_out.append(row)
+        log(f'[bn_op] {mode}, {rows} rows x {c}: forward {op_ms:.3f} ms '
+            f'(twin {twin_fwd_ms:.3f}), backward {bwd_ms} ms (twin '
+            f'{bwd_twin_ms}); kernels traced (ms, launches) per call: '
+            + json.dumps([{k: v for k, v in t.items() if k in BN_KERNELS}
+                          for t in traced.values()]))
+    return rows_out
 
 
 def traced_ms(fn, reps):
@@ -706,6 +807,7 @@ def train_phase(cfg, batches, device, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     KC.reset_counts()
+    MB.reset_counts()
     lrs = [cfg.lr * (1 - 0.1 * i) for i in range(TRAIN_STEPS)]
     losses = []
     t0 = time.perf_counter()
@@ -715,18 +817,25 @@ def train_phase(cfg, batches, device, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = dict(KC.LAUNCHES), dict(KC.PLAIN_CALLS)
+    bn_calls, bn_plain = dict(MB.LAUNCHES), dict(MB.PLAIN_CALLS)
     peak = torch.cuda.max_memory_allocated(device)
     opt = [float(ld['optimization_loss']) for ld in losses]
     finite = all(torch.isfinite(v).all().item() for ld in losses
                  for v in ld.values())
     log(f'[train] optimization_loss per step {opt} (lr {lrs}); launches '
         f'per mode over {TRAIN_STEPS} steps: {launches}; plain-twin calls: '
-        f'{plain}')
+        f'{plain}; masked BN op calls through the kernels {bn_calls}, '
+        f'through the twin {bn_plain}')
     if not finite:
         raise AssertionError('non-finite losses in the training slice')
-    if min(launches.values()) == 0 or sum(plain.values()) != 0:
+    n_bn = sum(isinstance(m, MaskedBatchNorm) for m in state.model.modules())
+    want_bn = {'fwd_train': n_bn * TRAIN_STEPS, 'fwd_eval': 0,
+               'bwd': n_bn * TRAIN_STEPS}
+    if (min(launches.values()) == 0 or sum(plain.values()) != 0
+            or bn_calls != want_bn or sum(bn_plain.values()) != 0):
         raise AssertionError('the train steps did not run every kernel, or '
-                             'ran a plain twin')
+                             f'ran a plain twin (BN op {bn_calls}, want '
+                             f'{want_bn})')
 
     split = []
     for b in dev:                       # each phase run alone, synchronized
@@ -742,10 +851,12 @@ def train_phase(cfg, batches, device, smi):
         'wall_s': wall, 'steps_per_s': TRAIN_STEPS / wall,
         'scenes_per_s': scenes / wall, 'ms_per_step': wall / TRAIN_STEPS * 1e3,
         'split_per_batch': split, 'peak_max_memory_allocated_GB': peak / 1e9,
-        'launches': launches}))
+        'launches': launches, 'bn_calls': bn_calls}))
     profile_window('train_profile', lambda: S.train_step(
         cfg, state, dev[0], lrs[-1], bb_w, cs_w), smi)
-    return state, dev, launches, wall / TRAIN_STEPS * 1e3
+    return state, dev, dict(launches, **{f'bn_{k}': v for k, v in
+                                         bn_calls.items()}), \
+        wall / TRAIN_STEPS * 1e3
 
 
 def grad_distance(a, b):
@@ -901,15 +1012,15 @@ def step_grads_check(tag, cfg, state, batch, module, kern, twin, check):
         raise AssertionError(f'a launch differs from its twin: {worst}')
     if not all(torch.isfinite(v).all().item() for v in gk.values()):
         raise AssertionError(f'{tag}: the kernels\' step is not finite')
-    gb = patched(twin, lambda: grads(ld_k))                     # (a)
+    gb = patched(twin, lambda: with_bn_twin(lambda: grads(ld_k)))   # (a)
     loss_k = ld_k['optimization_loss'].item()
     del ld_k
     report('the twins\' backward on the same forward', gk, gb,
            GRAD_BWD_L2_TOL, GRAD_BWD_COS_TOL)
     del gb
-    ld_t = patched(twin, forward)                               # (b)
-    gt, loss_t = patched(twin, lambda: grads(ld_t)), ld_t[
-        'optimization_loss'].item()
+    ld_t = patched(twin, lambda: with_bn_twin(forward))         # (b)
+    gt, loss_t = patched(twin, lambda: with_bn_twin(
+        lambda: grads(ld_t))), ld_t['optimization_loss'].item()
     del ld_t
     log(f'[{tag}] optimization_loss kernels {loss_k:.6f}, twins '
         f'{loss_t:.6f}: relative {abs(loss_k - loss_t) / abs(loss_t):.3e} '
@@ -940,6 +1051,7 @@ def slice_phase(pipe, cfg, batches, smi, tag):
     KC.reset_counts()
     PC.reset_counts()
     ops.reset_counts()
+    MB.reset_counts()
     t0 = time.perf_counter()
     n_results, n_masks = 0, 0
     for results, out_np, _, host in pipe.run(None, batches[1:],
@@ -960,32 +1072,54 @@ def slice_phase(pipe, cfg, batches, smi, tag):
     wall = time.perf_counter() - t0
     counts = (dict(KC.LAUNCHES), dict(KC.PLAIN_CALLS), dict(PC.LAUNCHES),
               dict(PC.PLAIN_CALLS), dict(ops.XLA_CALLS))
+    bn_calls, bn_plain = dict(MB.LAUNCHES), dict(MB.PLAIN_CALLS)
     pipe.infer = infer
     n_batches = len(batches) - 1
+    n_bn = sum(isinstance(m, MaskedBatchNorm) for m in pipe.model.modules())
+    if (bn_calls != {'fwd_train': 0, 'fwd_eval': n_bn * n_batches, 'bwd': 0}
+            or sum(bn_plain.values())):
+        raise AssertionError(f'{tag}: BN op calls {bn_calls}, twin calls '
+                             f'{bn_plain} ({n_bn} BNs x {n_batches} batches '
+                             'through the kernels wanted)')
+    SLICE_BN_CALLS[tag] = bn_calls['fwd_eval']
     if len(finite) != n_batches * len(cfg.network_heads) or not all(
             bool(f) for f in finite):
         raise AssertionError(f'non-finite head outputs in the {tag}')
     log(f'[{tag}] head outputs finite in all {n_batches} batches')
     log(f'[{tag}] launches over {n_batches} batches: key_conv {counts[0]}, '
         f'pallas_conv {counts[2]}; plain-twin calls: key_conv {counts[1]}, '
-        f'pallas_conv {counts[3]}; XLA-formulation calls {counts[4]}')
+        f'pallas_conv {counts[3]}; XLA-formulation calls {counts[4]}; '
+        f'masked BN op calls {bn_calls}, twin calls {bn_plain}')
     log(f'[{tag}] {n_results} scenes, {n_masks} masks, {wall:.3f} s -> '
         f'{n_results / wall:.3f} scenes/s on {smi}')
     return counts
 
 
 def with_twins(fn):
-    """fn() with every conv kernel wrapper replaced by its plain twin."""
+    """fn() with every conv kernel wrapper and the BN op's kernels replaced
+    by their plain twins."""
     saved = (KC.key_conv, KC.key_conv_stem, PC.sparse_conv, PC.gather_rows)
     KC.key_conv = KC.key_conv_plain
     KC.key_conv_stem = lambda x, kin, w: KC.key_conv_plain(
         x, kin, kin.reshape(-1), w, kernel_size=5, out_dtype=torch.float32)
     PC.sparse_conv, PC.gather_rows = PC.sparse_conv_plain, PC.gather_rows_plain
     try:
-        return fn()
+        return with_bn_twin(fn)
     finally:
         (KC.key_conv, KC.key_conv_stem, PC.sparse_conv,
          PC.gather_rows) = saved
+
+
+def with_bn_twin(fn):
+    """fn() with the BN op's CUDA forward and backward replaced by the
+    twin's torch ops (on the card's tensors)."""
+    saved = (MB.forward_cuda, MB.backward_cuda)
+    MB.forward_cuda = MB.forward_plain
+    MB.backward_cuda = lambda *a, need_res: MB.backward_plain(*a)
+    try:
+        return fn()
+    finally:
+        MB.forward_cuda, MB.backward_cuda = saved
 
 
 def compare_forwards(tag, pred_a, pred_b, batch, what):
@@ -3495,6 +3629,7 @@ def main():
     # ---- 2. kernels vs plain twins
     dev0 = upload(batches[1][0], device)
     rows = kernel_phase(dev0, g)
+    bn_rows = bn_kernel_phase(g)
 
     phase(3)
     # ---- 3. the slice
@@ -3673,6 +3808,20 @@ def main():
                 'dp_launches': dp_launches['nmap'][r['kernel']],
                 'spatial_launches': 0, 'viz_launches': 0,
                 'gate_launches': 0})
+    # the BN op's kernels: launches are op calls, one launch of each kernel
+    # per call (the reduce twice in a train step's BN: forward and backward);
+    # eval: phase 3's slice; not counted on the other paths
+    for r in bn_rows:
+        n = (SLICE_BN_CALLS['slice'] if r['mode'] == 'eval'
+             else train_launches['bn_fwd_train'])
+        kernels.append({
+            'name': r['name'], 'route': 'cuda', 'source': BN_SRC,
+            'replaces': None, 'launches': n,
+            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+            'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+            'bound_by': r['bound_by'], 'library_ms': None,
+            'dp_launches': None, 'spatial_launches': None,
+            'viz_launches': None, 'gate_launches': None})
     for r in nt_rows:               # phase 13's shapes and launches
         kernels.append({
             'name': r['name'], 'route': 'cuda', 'source': NMAP_SRC,

@@ -1,7 +1,8 @@
-"""The CUDA key-matching conv kernels against their plain PyTorch twins, on
-the card (every test here carries the `cuda` marker and skips without one).
-The file imports torch and the port only, so the machine with the card runs
-it without JAX:
+"""The CUDA kernels (key-matching and neighbor-map convs, the row gather,
+masked batch norm) against their plain PyTorch twins, on the card (every
+test here carries the `cuda` marker and skips without one). The file
+imports torch and the port only, so the machine with the card runs it
+without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -450,6 +451,146 @@ def test_gather_rows_kernel_edges_on_card(cuda, edge, n, vin, c):
         assert not got.any()
 
 
+# ------------------------------------------- masked batch norm + ReLU (+ res)
+def bn_case(cuda, rows, c, xdtype, ydtype, seed):
+    """Level-0-like rows of 8 (train) or 4 (eval) scenes of 131072 rows,
+    each valid for a prefix of 100k-125k rows; x ~ N(0.5, 2) with channel 0
+    0.5 on the valid rows (s1, s2 exact in any order: v0 = 0 on both
+    sides, where the clamp passes the gradient); f32 parameters
+    and running statistics; a residual in y's dtype; the upstream gradient
+    g in y's dtype, on padded rows too."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    scenes = rows // 131072
+    n_s = torch.randint(100_000, 125_000, (scenes,), generator=gen,
+                        device=cuda)
+    valid = (torch.arange(131072, device=cuda)[None, :]
+             < n_s[:, None]).reshape(-1)
+    x = torch.randn(rows, c, generator=gen, device=cuda) * 2 + 0.5
+    x[valid, 0] = 0.5
+    p = {k: torch.randn(c, generator=gen, device=cuda) * 0.3 + mu
+         for k, mu in (('scale', 1.0), ('bias', 0.0), ('mean', 0.0))}
+    p['var'] = torch.rand(c, generator=gen, device=cuda) * 1.5 + 0.5
+    res = torch.randn(rows, c, generator=gen, device=cuda).to(ydtype)
+    g = torch.randn(rows, c, generator=gen, device=cuda).to(ydtype)
+    return (x.to(xdtype), valid, n_s.sum().to(torch.int32).reshape(()), p,
+            res, g)
+
+
+def bf16_ulp_t(v):
+    """One bf16 ulp at the magnitude of each element (torch, on the card)."""
+    v = v.float().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(v)) - 7)
+
+
+BN_DTYPES = {'bf16': (torch.bfloat16, torch.bfloat16),
+             'f32': (torch.float32, torch.float32),
+             'f32_to_bf16': (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('act', ['relu', 'relu_res', 'none'])
+@pytest.mark.parametrize('c', [32, 64, 96, 128, 256])
+@pytest.mark.parametrize('dtypes', list(BN_DTYPES))
+def test_masked_bn_kernels_match_twin_on_card(cuda, dtypes, c, act):
+    """The four kernels (sums + reduce/finalize, normalize; backward sums +
+    reduce, dx) against the twin's torch ops on the same card, train mode
+    at the level-0 train shape (1,048,576 rows) and eval at the eval shape
+    (524,288). The twin's backward takes the kernels' y and statistics, so
+    the backward kernels are held alone. Tolerances: the statistics and
+    the f32 sums differ only in the order of the f32 sums (mean 1e-5 of
+    max |x|, inv 1e-4 relative: var = s2/n - mean^2 cancels, running
+    statistics the same); f32 y and dx 1e-5 of their scale; bf16 y one
+    bf16 step of the normalized value z (the statistics move z by ~1e-6,
+    so its rounding may land on the neighbouring value), plus one step of
+    y when the residual sum rounds again; bf16 dx one step plus 1e-5 of
+    its scale (the moments' terms subtract); dbias, dscale 1e-5 of the sum
+    of the terms' magnitudes; dresidual = g' bit-equal. Each launch twice:
+    bit-equal (fixed-order sums, no atomics). With ReLU, g is a slice of a
+    wider tensor, as a concat's gradient comes."""
+    from box2mask_torch.sparse import masked_bn as MB
+    xdt, ydt = BN_DTYPES[dtypes]
+    relu, has_res = act != 'none', act == 'relu_res'
+    for training, rows in ((True, 1 << 20), (False, 1 << 19)):
+        x, valid, nv, p, res, g = bn_case(cuda, rows, c, xdt, ydt, c + rows)
+        if relu:
+            wide = torch.randn(rows, c + 32, device=cuda).to(ydt)
+            wide[:, :c] = g
+            g = wide[:, :c]
+        res = res if has_res else None
+        cfg = MB.Cfg(training, True, 0.1, 1e-5, relu, ydt, None)
+        runs = {}
+        for side in ('kernel', 'kernel_again', 'twin'):
+            rm, rv = p['mean'].clone(), p['var'].clone()
+            fwd = MB.forward_plain if side == 'twin' else MB.forward_cuda
+            y, st = fwd(x, p['scale'], p['bias'], res, valid, nv, rm, rv,
+                        cfg)
+            runs[side] = (y, st, rm, rv)
+        torch.cuda.synchronize()
+        y_k, st_k, rm_k, rv_k = runs['kernel']
+        for a, b in zip(runs['kernel'], runs['kernel_again']):
+            assert (a is None and b is None) or torch.equal(a, b)
+        y_t, st_t, rm_t, rv_t = runs['twin']
+        assert y_k.dtype == ydt
+        if training:
+            mean_k, inv_k = st_k[:c], st_k[c:2 * c]
+            mean_t, inv_t = st_t[:c], st_t[c:2 * c]
+            xmax = float(x.float().abs().max())
+            assert float((mean_k - mean_t).abs().max()) <= 1e-5 * xmax
+            assert float(((inv_k - inv_t) / inv_t).abs().max()) <= 1e-4
+            assert torch.equal(st_k[2 * c:], st_t[2 * c:])   # flags, n
+            assert float(st_k[0]) == 0.5 and float(st_k[2 * c]) == 1.0
+            assert float((rm_k - rm_t).abs().max()) <= 1e-5 * xmax
+            assert float(((rv_k - rv_t) / rv_t).abs().max()) <= 1e-4
+            mean, inv = mean_t, inv_t
+        else:
+            assert torch.equal(rm_k, p['mean']) and torch.equal(rv_k,
+                                                                p['var'])
+            mean, inv = p['mean'], torch.rsqrt(p['var'] + 1e-5)
+        z = (x.float() - mean) * (inv * p['scale']) + p['bias']
+        zmax = float(z.abs().max())
+        diff = (y_k.float() - y_t.float()).abs()
+        if ydt == torch.float32:
+            assert float(diff.max()) <= 1e-5 * zmax
+        else:
+            tol = bf16_ulp_t(z) + 1e-5 * zmax
+            if has_res:
+                tol = tol + torch.maximum(bf16_ulp_t(y_k), bf16_ulp_t(y_t))
+            assert bool((diff <= tol).all())
+        # backward on the kernels' forward
+        outs = {}
+        for side in ('kernel', 'kernel_again', 'twin'):
+            if side == 'twin':
+                dx, ds, db, dres = MB.backward_plain(
+                    g, x, y_k, valid, p['scale'], st_k, p['mean'], p['var'],
+                    cfg)
+            else:
+                dx, ds, db, dres = MB.backward_cuda(
+                    g, x, y_k, valid, p['scale'], st_k, p['mean'], p['var'],
+                    cfg, need_res=has_res)
+            outs[side] = (dx, ds, db, dres if has_res else None)
+        torch.cuda.synchronize()
+        for a, b in zip(outs['kernel'], outs['kernel_again']):
+            assert (a is None and b is None) or torch.equal(a, b)
+        (dx_k, ds_k, db_k, dr_k), (dx_t, ds_t, db_t, dr_t) = (outs['kernel'],
+                                                              outs['twin'])
+        assert dx_k.dtype == xdt
+        if has_res:
+            assert dr_k.dtype == ydt and torch.equal(dr_k, dr_t)
+        gp = torch.where(y_k > 0, g, 0).float() if relu else g.float()
+        xhat = ((x.float() - (st_k[:c] if training else mean))
+                * (st_k[c:2 * c] if training else inv))
+        for got, want, mag in ((db_k, db_t, gp.abs().sum(0)),
+                               (ds_k, ds_t, (gp * xhat).abs().sum(0))):
+            assert bool(((got - want).abs() <= 1e-5 * mag + 1e-30).all())
+        dmax = float(dx_t.float().abs().max())
+        ddiff = (dx_k.float() - dx_t.float()).abs()
+        if xdt == torch.float32:
+            assert float(ddiff.max()) <= 1e-5 * dmax
+        else:
+            tol = torch.maximum(bf16_ulp_t(dx_k), bf16_ulp_t(dx_t))
+            assert bool((ddiff <= tol + 1e-5 * dmax).all())
+
+
 @pytest.mark.cuda
 def test_cuda_tensor_without_kernel_library_raises(cuda, monkeypatch,
                                                    tmp_path):
@@ -472,3 +613,11 @@ def test_cuda_tensor_without_kernel_library_raises(cuda, monkeypatch,
     with pytest.raises(RuntimeError, match='nvcc'):
         PCV.gather_rows(x, maps['up_parent0'].to(cuda))
     assert PCV.PLAIN_CALLS == plain
+    from box2mask_torch.sparse import masked_bn as MB
+    bn_plain = dict(MB.PLAIN_CALLS)
+    ones = torch.ones(32, device=cuda)
+    with pytest.raises(RuntimeError, match='nvcc'):
+        MB.bn_act(x, torch.ones(x.shape[0], dtype=torch.bool, device=cuda),
+                  torch.tensor(x.shape[0], device=cuda), ones, ones, ones,
+                  ones, training=True, relu=True)
+    assert MB.PLAIN_CALLS == bn_plain

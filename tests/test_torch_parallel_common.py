@@ -112,6 +112,52 @@ def moments_worker(rank, world, group, x, valid, n_valid, a, b):
             'n': float(n), 'dx': x.grad.numpy()}
 
 
+def bn_group_worker(rank, world, group):
+    """Rank `rank`'s masked BN + residual + ReLU over the group, f64, each
+    rank with its own rows: y and the grads of sum(G * y) from the op's
+    plain twin and from autograd through the formula over
+    ops.masked_moments' differentiable all-reduce, by name as (op,
+    formula); the running statistics the same way."""
+    from box2mask_torch.sparse import masked_bn as MB
+    rows, c = 40, 16
+    rng = np.random.default_rng(100 + rank)
+    n_valid = (31, 12)[rank]
+    valid = torch.from_numpy(np.arange(rows) < n_valid)
+    nv = torch.tensor(n_valid, dtype=torch.int32)
+    vals = {k: torch.from_numpy(rng.normal(mu, sd, shape)) for k, mu, sd,
+            shape in (('x', 1, 3, (rows, c)), ('res', 0, 1, (rows, c)),
+                      ('G', 0, 1, (rows, c)))}
+    shared = np.random.default_rng(7)
+    scale0 = torch.from_numpy(shared.normal(1, 0.3, c))
+    bias0 = torch.from_numpy(shared.normal(0, 0.3, c))
+    out = {}
+    for side in ('op', 'formula'):
+        x = vals['x'].clone().requires_grad_(True)
+        res = vals['res'].clone().requires_grad_(True)
+        scale = scale0.clone().requires_grad_(True)
+        bias = bias0.clone().requires_grad_(True)
+        rmean = torch.zeros(c, dtype=torch.float64)
+        rvar = torch.ones(c, dtype=torch.float64)
+        if side == 'op':
+            y = MB.bn_act(x, valid, nv, scale, bias, rmean, rvar,
+                          training=True, relu=True, residual=res,
+                          group=group)
+        else:
+            mean, var, n = ops.masked_moments(x, valid, nv, group)
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                rmean.mul_(0.9).add_(0.1 * mean)
+                rvar.mul_(0.9).add_(0.1 * unbiased)
+            y = torch.relu((x - mean) * (torch.rsqrt(var + 1e-5) * scale)
+                           + bias + res)
+        (y * vals['G']).sum().backward()
+        for k, v in (('y', y.detach()), ('dx', x.grad), ('dres', res.grad),
+                     ('dscale', scale.grad), ('dbias', bias.grad),
+                     ('run_mean', rmean), ('run_var', rvar)):
+            out.setdefault(k, []).append(v)
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def to_torch(dev):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in dev.items()}
 

@@ -36,6 +36,7 @@ from box2mask_torch.engine.infer import FusedInferencePipeline
 from box2mask_torch.postprocess.device_post import make_core
 from box2mask_torch.postprocess.nms import SYNC_EVERY
 from box2mask_torch.sparse import key_conv as KC
+from box2mask_torch.sparse import masked_bn as MB
 
 torch.set_num_threads(2)
 ARGS = ['--dataset_name', 'synthetic', '--network_heads', 'mlp_offsets',
@@ -194,9 +195,13 @@ def test_counts_carry_the_kernel_counters():
     got = tracing.counts()
     assert got['key_conv']['same'] == 3 and got['scenes'] == 1
     assert {'key_conv_plain', 'nmap_conv', 'nmap_conv_plain',
-            'torch_formulation', 'halo'} <= set(got)
+            'masked_bn', 'masked_bn_plain', 'torch_formulation',
+            'halo'} <= set(got)
+    MB.PLAIN_CALLS['bwd'] += 2
+    assert tracing.counts()['masked_bn_plain']['bwd'] == 2
     tracing.reset_counts()
     assert KC.LAUNCHES['same'] == 0 == tracing.counts()['scenes']
+    assert MB.PLAIN_CALLS['bwd'] == 0
 
 
 def test_add_loses_no_update_across_threads():
