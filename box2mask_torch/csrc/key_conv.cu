@@ -36,22 +36,42 @@
 // part here.
 //
 // Weight-gradient design. The TPU kernel carries one (K, cin, cout) sum
-// through its sequential grid; here blocks run in parallel. Pass 0 searches
-// every (offset, output row) pair at once into an int32 match table. Pass 1:
-// a block owns (row slice, group of G offsets, CI input channels, NT output
-// channels) and walks its row tiles (64 rows; tiles s, s + S, ...) through a
-// ring of 2-4 stages: per tile one g tile and the G matched x tiles arrive by
-// cp.async (zeros for a miss, and for g rows no offset of the group matched)
-// while the previous tile is multiplied, and the tile's table rows arrive by
-// cp.async one ring turn ahead of the gathers that need them. Each staged g
-// tile serves G offsets. The 8 warps share the (offset, 16 input channels,
-// NB output channels) units of the group; x^T g runs as mma.sync m16n8k16
-// with both operands loaded by ldmatrix.trans, f32 accumulators in
-// registers; a unit whose offset matched no row of the tile is skipped.
-// Each block writes its slab to partials[s]; pass 2 adds the S partials in
-// slice order. S is one wave of blocks (the occupancy API's count), which
-// keeps the partials small. No atomics: the result is the same bit for bit
-// from run to run.
+// through its sequential grid over dense row windows; here blocks run in
+// parallel over the matched pairs alone. Bound on the H100: at the main
+// path's shapes only 0.4-26% of the (offset, output row) products are
+// matched pairs (a level's pad dwarfs its rows; PERF.md), and what the
+// pairs cost is the gather of an x row and a g row per pair (L2 holds the
+// rows that several offsets share) under the tensor cores' work; a dense
+// walk of 64-row tiles x offsets, skipping a product only where no row of
+// the tile matched, multiplied mostly zero rows and, at the deep levels,
+// walked ~1000 near-empty tiles in series per block. So the dw first builds
+// per-offset lists of matched (input row, output row) pairs on the card and
+// multiplies tiles of pairs only:
+//   * match_table_kernel: every (offset, output row) search at once, PAIR_RPT
+//     searches per thread in lockstep, into an int32 match table, and the
+//     hits of each PAIR_CH-row chunk per offset;
+//   * match_table_kernel_scan (one block): each offset's chunk offsets, its
+//     pair count, and the work items: chunks of `chunk` pairs (a multiple of
+//     64, from the total so that the items make about two waves of blocks),
+//     numbered offset by offset; the items in flight together take the
+//     same row ranges of several offsets, whose x and g rows L2 shares;
+//   * key_conv_dw_kernel_pairs: a stable compaction of each offset's hits
+//     into its list, in output-row order (misses, guarded axis wraps and
+//     SENT rows never enter one);
+//   * key_conv_dw_kernel: a block takes one item (one offset's chunk of
+//     pairs) and CI input x NT output channels, and walks its 64-pair tiles
+//     through a ring of 2-4 stages: per tile the pairs, one ring turn
+//     ahead, then the x and g rows by cp.async (zeros past the item's last
+//     pair) while the previous tile is multiplied; the 8 warps share the
+//     (CW input, NB output channels) units, mma.sync m16n8k16 with both
+//     operands loaded by ldmatrix.trans, f32 accumulators in registers; it
+//     writes its (cin, cout) slab to the item's partial;
+//   * sum_slices_kernel_items: dw[k] = the sum of offset k's item partials
+//     in item order.
+// The pair counts stay on the card: the host sizes every grid from the
+// shapes, and a block past the last item exits at once. No atomics: the
+// result is the same bit for bit from run to run. The table is dead once
+// the lists are built, so the partials reuse its memory.
 //
 // Stem weight-gradient design (K = 125, cin <= 8, cout 16 or 32). Bound on
 // the H100: the bytes (x, keys and the f32 g the backward gives read once,
@@ -74,6 +94,7 @@
 #include <stdint.h>
 
 #include "conv_tile.cuh"
+#include "dw_plan.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -229,40 +250,16 @@ int dispatch(const void* x, const void* keys_in, const void* keys_out,
 }
 
 // ------------------------------------------------------- weight gradients
-constexpr int DW_M = 64;          // rows per dw tile (the product's depth)
-constexpr int DW_THREADS = 256;   // 8 warps
-constexpr int DW_WARPS = DW_THREADS / 32;
+// constants, DwPlan and DwScratch: csrc/dw_plan.cuh
+using namespace dw_plan;
 
-// How a dw launch splits the work; key_conv.py (_dw_slices) mirrors it to
-// size the partials. CI input channels and NT output channels per block,
-// G offsets sharing each g tile (~48 KB of x tiles per stage at most), and
-// per warp units of CW input x NB output channels of one offset: a 32 x 32
-// unit loads two A and two B fragments per eight products.
-struct DwPlan {
-  int CI, n_ci, NT, NB, CW, G, n_kg, upo, UPW;
-  DwPlan(int K, int cin, int cout) {
-    CI = cin <= 128 ? (cin + 15) / 16 * 16 : 128;
-    n_ci = (cin + CI - 1) / CI;
-    NT = cout % 128 == 0 ? 128 : cout % 96 == 0 ? 96 : cout % 64 == 0 ? 64
-         : cout % 32 == 0 ? 32 : 16;
-    NB = NT % 32 == 0 ? 32 : 16;
-    CW = CI % 32 == 0 ? 32 : 16;
-    upo = (CI / CW) * (NT / NB);
-    // at most 8 units per warp and 128 accumulator registers per thread
-    const int per_warp = 4096 / (CW * NB) < 8 ? 4096 / (CW * NB) : 8;
-    G = DW_WARPS * per_warp / upo;
-    const int g_smem = 49152 / (2 * DW_M * (CI + 8));
-    if (G > g_smem) G = g_smem;
-    if (G > K) G = K;
-    if (G < 1) G = 1;
-    n_kg = (K + G - 1) / G;
-    UPW = (G * upo + DW_WARPS - 1) / DW_WARPS;
-  }
-  int bytes(int stages) const {
-    return stages * 2 * DW_M * ((NT + 8) + G * (CI + 8)) +
-           2 * stages * G * DW_M * 4;
-  }
-};
+// the SMs of the current device (132 on the H100 SXM)
+int sm_count() {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -280,81 +277,236 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Pass 1 of dw for the three _kernel modes. Block (kg, s, z): offsets
-// kg * G .. + G, input channels c0 .. c0 + CI and output channels n0 .. n0 +
-// NT (z enumerates the chunks), over row tiles s, s + S, ...; matches from
-// the table (K rows of n_pad entries, -1 past n_out). Writes the block's
-// slab of the partial sum to part[s][k] (a (cin, cout) f32 block per slice
-// and offset).
+__device__ __forceinline__ int warp_inclusive_sum(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += t;
+  }
+  return v;
+}
+
+// Pass 0 of dw: table[k * n_pad + v] = the input row that output row v
+// matches at offset k, or -1 (rows v < n_out), and counts[k * n_chunks + j]
+// = the hits among chunk j's PAIR_CH rows. Block (j, k); each thread makes
+// its PAIR_RPT searches (rows strided by the block, coalesced) as branchless
+// lower bounds in lockstep, so that their loads are in flight together.
+__global__ void __launch_bounds__(DW_THREADS)
+match_table_kernel(const int* __restrict__ keys_in,
+                   const int* __restrict__ keys_out, int* __restrict__ table,
+                   int* __restrict__ counts, Geom g, int n_pad) {
+  __shared__ int warp_n[DW_WARPS];
+  const int n_out = g.B * g.pad_out, k = blockIdx.y;
+  const int v0 = blockIdx.x * PAIR_CH + threadIdx.x;
+  int q[PAIR_RPT], base[PAIR_RPT];
+  const int* kr[PAIR_RPT];
+#pragma unroll
+  for (int r = 0; r < PAIR_RPT; ++r) {
+    const int v = v0 + r * DW_THREADS;
+    q[r] = -1;
+    base[r] = 0;
+    kr[r] = keys_in;
+    if (v < n_out && g.pad_in > 0) {
+      q[r] = query(g, __ldg(keys_out + v), k);
+      kr[r] = keys_in + (size_t)(v / g.pad_out) * g.pad_in;
+    }
+  }
+  for (int len = g.pad_in; len > 1;) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int r = 0; r < PAIR_RPT; ++r)
+      if (q[r] >= 0 && __ldg(kr[r] + base[r] + half) < q[r]) base[r] += half;
+    len -= half;
+  }
+  int n = 0;
+#pragma unroll
+  for (int r = 0; r < PAIR_RPT; ++r) {
+    const int v = v0 + r * DW_THREADS;
+    if (v >= n_out) continue;
+    int hit = -1;
+    if (q[r] >= 0) {
+      const int p = base[r] + (__ldg(kr[r] + base[r]) < q[r]);
+      if (p < g.pad_in && __ldg(kr[r] + p) == q[r])
+        hit = (int)(kr[r] - keys_in) + p;
+    }
+    table[(size_t)k * n_pad + v] = hit;
+    n += hit >= 0;
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) n += __shfl_xor_sync(0xffffffffu, n, d);
+  if ((threadIdx.x & 31) == 0) warp_n[threadIdx.x >> 5] = n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int w = 0; w < DW_WARPS; ++w) s += warp_n[w];
+    counts[(size_t)k * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// Pass 1 (one block): each offset's chunk counts become the offsets of the
+// chunks' hits in its list (a warp per offset) and its pair count; then the
+// work items: chunks of `chunk` pairs, chunk = total / target rounded up to
+// a multiple of DW_M, item c of offset k covering its pairs c * chunk ..,
+// numbered offset by offset, so that at most target + K items exist.
+// Integer arithmetic only: the same counts give the same items.
+__global__ void __launch_bounds__(1024)
+match_table_kernel_scan(int* __restrict__ counts, int* __restrict__ meta,
+                        int K, int n_chunks, int target) {
+  // the per-offset pair counts pass from the warps to thread 0 in shared
+  // memory
+  __shared__ int s_pairs[DW_KMAX];
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int k = tid >> 5; k < K; k += blockDim.x >> 5) {
+    int* c = counts + (size_t)k * n_chunks;
+    int run = 0;
+    for (int i0 = 0; i0 < n_chunks; i0 += 32) {
+      const int i = i0 + lane;
+      const int v = i < n_chunks ? c[i] : 0;
+      const int s = warp_inclusive_sum(v);
+      if (i < n_chunks) c[i] = run + s - v;
+      run += __shfl_sync(0xffffffffu, s, 31);
+    }
+    if (lane == 0) s_pairs[k] = run;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    long long total = 0;
+    for (int k = 0; k < K; ++k) total += s_pairs[k];
+    long long chunk = (total + target - 1) / target;
+    chunk = (chunk + DW_M - 1) / DW_M * DW_M;
+    if (chunk < DW_M) chunk = DW_M;
+    int n_items = 0;
+    for (int k = 0; k < K; ++k) {
+      const int items = (int)((s_pairs[k] + chunk - 1) / chunk);
+      meta[DW_META + 3 * k] = s_pairs[k];
+      meta[DW_META + 3 * k + 1] = items;
+      meta[DW_META + 3 * k + 2] = n_items;
+      n_items += items;
+    }
+    meta[0] = n_items;
+    meta[1] = (int)chunk;
+    meta[2] = target;
+  }
+}
+
+// Pass 2: the pair lists. Block (j, k) moves the hits of chunk j's rows at
+// offset k, in row order, to pairs[k * n_pad + offset of chunk j ..] as
+// (input row, output row): each thread owns PAIR_RPT consecutive rows (two
+// 16-byte table loads) and a block scan places its hits.
+__global__ void __launch_bounds__(DW_THREADS)
+key_conv_dw_kernel_pairs(const int* __restrict__ table,
+                         const int* __restrict__ counts,
+                         int2* __restrict__ pairs, int n_out, int n_pad) {
+  __shared__ int warp_n[DW_WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k = blockIdx.y;
+  const int v0 = blockIdx.x * PAIR_CH + tid * PAIR_RPT;
+  int src[PAIR_RPT];
+#pragma unroll
+  for (int r = 0; r < PAIR_RPT; ++r) src[r] = -1;
+  // n_pad % PAIR_RPT == 0: a thread's rows lie all inside the table's row
+  // or all past it
+  if (v0 < n_pad) {
+    const int4* t = reinterpret_cast<const int4*>(table + (size_t)k * n_pad +
+                                                  v0);
+    const int4 a = t[0], b = t[1];
+    src[0] = a.x, src[1] = a.y, src[2] = a.z, src[3] = a.w;
+    src[4] = b.x, src[5] = b.y, src[6] = b.z, src[7] = b.w;
+  }
+  int n = 0;
+#pragma unroll
+  for (int r = 0; r < PAIR_RPT; ++r) {
+    if (v0 + r >= n_out) src[r] = -1;
+    n += src[r] >= 0;
+  }
+  const int s = warp_inclusive_sum(n);
+  if (lane == 31) warp_n[warp] = s;
+  __syncthreads();
+  int pos = counts[(size_t)k * gridDim.x + blockIdx.x] + s - n;
+  for (int w = 0; w < warp; ++w) pos += warp_n[w];
+  int2* dst = pairs + (size_t)k * n_pad;
+#pragma unroll
+  for (int r = 0; r < PAIR_RPT; ++r)
+    if (src[r] >= 0) dst[pos++] = make_int2(src[r], v0 + r);
+}
+
+// Pass 3 of dw for the three _kernel modes. Block (z, i): work item i,
+// chunk c = i - first item of offset k, the pairs c * chunk .. of k's list, input
+// channels c0 .. c0 + CI and output channels n0 .. n0 + NT (z enumerates
+// the channel blocks, fastest, so that the blocks of one item run side by
+// side); i >= the item count exits. Writes the block's slab of the item's
+// partial sum to part[first item of k + c] (a (cin, cout) f32 block).
 template <int NB, int CW, int UPW>
 __global__ void __launch_bounds__(DW_THREADS)
 key_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int* __restrict__ table,
                    const __nv_bfloat16* __restrict__ gr,
-                   float* __restrict__ part, Geom g, int n_pad, int G, int CI,
-                   int NT, int stages) {
+                   const int2* __restrict__ pairs,
+                   const int* __restrict__ meta, float* __restrict__ part,
+                   int K, int cin, int cout, int n_pad, int CI, int NT,
+                   int stages) {
+  const int it = blockIdx.y;
+  if (it >= __ldg(meta)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int K = g.ks * g.ks * g.ks, cin = g.cin, cout = g.cout;
-  const int n_tiles = (g.B * g.pad_out + DW_M - 1) / DW_M;
-  const int k0 = blockIdx.x * G, Gv = min(G, K - k0);
-  const int s0 = blockIdx.y, S = gridDim.y;
+  // the item's offset: the last whose first item is at most it (first
+  // items ascend; an offset without items shares the next one's)
+  const int k = __syncthreads_count(
+      tid < K && __ldg(meta + DW_META + 3 * tid + 2) <= it) - 1;
+  const int* mk = meta + DW_META + 3 * k;
+  const int ch = it - __ldg(mk + 2);
+  const int chunk = __ldg(meta + 1);
+  const int p0 = ch * chunk;
+  const int n_pairs = min(chunk, __ldg(mk) - p0);
+  const int n_my = (n_pairs + DW_M - 1) / DW_M;
   const int n_ci = (cin + CI - 1) / CI;
-  const int c0 = (blockIdx.z % n_ci) * CI, n0 = (blockIdx.z / n_ci) * NT;
+  const int c0 = (blockIdx.x % n_ci) * CI, n0 = (blockIdx.x / n_ci) * NT;
   const int LDX = CI + 8, LDG = NT + 8;
   const int nbs = NT / NB, upo = (CI / CW) * nbs;
-  const int n_my = s0 < n_tiles ? (n_tiles - s0 + S - 1) / S : 0;
+  const int2* list = pairs + (size_t)k * n_pad + p0;
 
   __nv_bfloat16* gs0 = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* xs0 = gs0 + stages * DW_M * LDG;
-  int* ix0 = reinterpret_cast<int*>(xs0 + stages * G * DW_M * LDX);
-  auto slot = [&](int i) { return ix0 + (i % (2 * stages)) * G * DW_M; };
+  int2* ix0 = reinterpret_cast<int2*>(xs0 + stages * DW_M * LDX);
+  auto slot = [&](int i) { return ix0 + (i % (2 * stages)) * DW_M; };
 
-  // the table rows of tile j (the block's j-th), one ring turn ahead
+  // the pairs of tile j, one ring turn ahead: 16 bytes (two pairs) a copy,
+  // none past the item's last pair (the gathers read only pairs below
+  // n_pairs)
   auto load_idx = [&](int j) {
-    if (j >= n_my) return;
-    int* d = slot(j);
-    const int row0 = (s0 + j * S) * DW_M;
-    for (int v = tid; v < Gv * (DW_M / 4); v += DW_THREADS) {
-      const int kk = v >> 4, q = v & 15;            // DW_M / 4 = 16
-      hopper::cp_async16(d + kk * DW_M + q * 4,
-                         table + (size_t)(k0 + kk) * n_pad + row0 + q * 4, 16);
-    }
+    if (j >= n_my || tid >= DW_M / 2) return;
+    const int p = j * DW_M + 2 * tid;
+    hopper::cp_async16(slot(j) + 2 * tid, p < n_pairs ? list + p : list,
+                       p < n_pairs ? 16 : 0);
   };
-  // tile i's g rows (zeros where no offset of the group matched) and its
-  // G matched x tiles into stage i % stages. Thread t moves row
-  // (t / 2) % 64, chunks (t % 2) + 2 (t / 128) + 4j: a warp reads pairs of
-  // 16-byte chunks of 16 rows, full 32-byte sectors.
+  // tile i's g and x rows into stage i % stages, zeros past the item's
+  // last pair. Thread t moves pair (t / 2) % 64, chunks (t % 2) + 2 (t /
+  // 128) + 4j: a warp reads pairs of 16-byte chunks of 16 rows.
   const int lr = (tid >> 1) & (DW_M - 1), lc = (tid & 1) + 2 * (tid >> 7);
   const int gv = NT / 8, xv = CI / 8;
   auto issue = [&](int i) {
     load_idx(i + stages - 1);
     if (i >= n_my) return;
-    const int st = i % stages, row0 = (s0 + i * S) * DW_M;
-    const int* ix = slot(i) + lr;
-    bool any = false;
-    for (int kk = 0; kk < Gv; ++kk) any |= ix[kk * DW_M] >= 0;
+    const int st = i % stages;
+    const bool ok = i * DW_M + lr < n_pairs;
+    const int2 pr = ok ? slot(i)[lr] : make_int2(-1, 0);
     __nv_bfloat16* gs = gs0 + st * DW_M * LDG + lr * LDG;
-    const __nv_bfloat16* gsrc = gr + (size_t)(row0 + lr) * cout + n0;
+    const __nv_bfloat16* gsrc = gr + (size_t)pr.y * cout + n0;
     for (int cv = lc; cv < gv; cv += 4)
-      hopper::cp_async16(gs + cv * 8, any ? gsrc + cv * 8 : gr,
-                         any ? 16 : 0);
-    __nv_bfloat16* xs = xs0 + st * G * DW_M * LDX + lr * LDX;
-    for (int kk = 0; kk < Gv; ++kk) {
-      const int src = ix[kk * DW_M];
-      for (int cv = lc; cv < xv; cv += 4)
-        conv_tile::gather8(xs + kk * DW_M * LDX + cv * 8, x, src, cin,
-                           c0 + cv * 8);
-    }
+      hopper::cp_async16(gs + cv * 8, ok ? gsrc + cv * 8 : gr, ok ? 16 : 0);
+    __nv_bfloat16* xs = xs0 + st * DW_M * LDX + lr * LDX;
+    for (int cv = lc; cv < xv; cv += 4)
+      conv_tile::gather8(xs + cv * 8, x, pr.x, cin, c0 + cv * 8);
   };
 
-  // this warp's units: (offset kk, CW input channels, NB outputs)
-  int u_kk[UPW], u_x[UPW], u_g[UPW];
+  // this warp's units: (CW input channels, NB outputs)
+  int u_x[UPW], u_g[UPW];
+  bool u_on[UPW];
 #pragma unroll
   for (int u = 0; u < UPW; ++u) {
     const int unit = warp + DW_WARPS * u;
-    u_kk[u] = unit < Gv * upo ? unit / upo : -1;
-    u_x[u] = u_kk[u] * DW_M * LDX + ((unit % upo) / nbs) * CW;
+    u_on[u] = unit < upo;
+    u_x[u] = (unit / nbs) * CW;
     u_g[u] = (unit % nbs) * NB;
   }
   const int a_off = ((lane & 7) + ((lane >> 4) & 1) * 8) * LDX +
@@ -372,13 +524,10 @@ key_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[u][c2][j][e] = 0.0f;
 
-  for (int m = 0; m < stages - 1 && m < n_my; ++m) {
-    int* d = slot(m);
-    const int row0 = (s0 + m * S) * DW_M;
-    for (int v = tid; v < Gv * DW_M; v += DW_THREADS)
-      d[v] = __ldg(table + (size_t)(k0 + v / DW_M) * n_pad + row0 + v % DW_M);
-  }
-  __syncthreads();
+  for (int m = 0; m < stages - 1; ++m) load_idx(m);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait(0);
+  __syncthreads();            // the first stages - 1 tiles' pairs
   for (int m = 0; m < stages - 1; ++m) {
     issue(m);
     hopper::cp_async_commit();
@@ -390,15 +539,11 @@ key_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
     hopper::cp_async_commit();
 
     const int st = i % stages;
-    const int* ix = slot(i);
     const __nv_bfloat16* gs = gs0 + st * DW_M * LDG + b_off;
-    const __nv_bfloat16* xs = xs0 + st * G * DW_M * LDX + a_off;
+    const __nv_bfloat16* xs = xs0 + st * DW_M * LDX + a_off;
 #pragma unroll
     for (int u = 0; u < UPW; ++u) {
-      if (u_kk[u] < 0) continue;
-      const int* h = ix + u_kk[u] * DW_M;
-      if (!__any_sync(0xffffffffu, h[lane] >= 0 || h[lane + 32] >= 0))
-        continue;
+      if (!u_on[u]) continue;
 #pragma unroll
       for (int ks = 0; ks < DW_M / 16; ++ks) {
         uint32_t a[CW / 16][4];
@@ -419,20 +564,18 @@ key_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
+  float* dst = part + (size_t)it * cin * cout;
 #pragma unroll
   for (int u = 0; u < UPW; ++u) {
-    if (u_kk[u] < 0) continue;
-    const int unit = warp + DW_WARPS * u;
-    const int cb = (unit % upo) / nbs, nb = unit % nbs;
-    float* dst = part + ((size_t)s0 * K + k0 + u_kk[u]) * cin * cout;
+    if (!u_on[u]) continue;
 #pragma unroll
     for (int c2 = 0; c2 < CW / 16; ++c2)
 #pragma unroll
       for (int j = 0; j < NB / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int c = c0 + cb * CW + c2 * 16 + (lane >> 2) + 8 * h;
-          const int n = n0 + nb * NB + j * 8 + (lane & 3) * 2;
+          const int c = c0 + u_x[u] + c2 * 16 + (lane >> 2) + 8 * h;
+          const int n = n0 + u_g[u] + j * 8 + (lane & 3) * 2;
           if (c < cin)
             *reinterpret_cast<float2*>(dst + (size_t)c * cout + n) =
                 make_float2(acc[u][c2][j][2 * h], acc[u][c2][j][2 * h + 1]);
@@ -440,13 +583,41 @@ key_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// Pass 4: dw[k] = the sum of offset k's item partials, in item order (zeros
+// for an offset without pairs).
+__global__ void sum_slices_kernel_items(const float* __restrict__ part,
+                                        float* __restrict__ out,
+                                        const int* __restrict__ meta, int K,
+                                        size_t per_k) {
+  const size_t n = (size_t)K * per_k;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int* mk = meta + DW_META + 3 * (int)(i / per_k);
+    const int items = mk[1];
+    const float* p = part + (size_t)mk[2] * per_k + i % per_k;
+    float s = 0.0f;
+    for (int c = 0; c < items; ++c) s += p[(size_t)c * per_k];
+    out[i] = s;
+  }
+}
+
+struct DwArgs {
+  const void *x, *keys_in, *keys_out, *g;
+  void *dw, *scratch;
+  Geom geo;
+};
+
+// The pair-list build (passes 0-2) and, with `multiply`, passes 3-4, for
+// the plan's instantiation: as many blocks per SM as the registers allow
+// (up to 4), then as many stages (2..4) as fit beside them; the items'
+// target is DW_WAVES waves of the blocks the SMs hold, over the n_z
+// channel blocks of an item, less K for the offsets' last items.
 template <int NB, int CW, int UPW>
-int launch_dw_k(const void* x, const void* table, const void* gr, void* part,
-                const Geom& g, int n_pad, const DwPlan& p, int& slices,
-                cudaStream_t stream) {
+int dw_run(const DwArgs& a, const DwPlan& p, bool multiply,
+           cudaStream_t stream) {
   constexpr auto kernel = key_conv_dw_kernel<NB, CW, UPW>;
-  // as many blocks per SM as the registers allow (up to 4), then as many
-  // stages (2..4) as fit beside them
+  const Geom& g = a.geo;
+  const int K = g.ks * g.ks * g.ks, n_out = g.B * g.pad_out;
   const int regs = conv_tile::kernel_regs<kernel>();
   const int by_regs = 65536 / (((regs + 7) / 8 * 8) * DW_THREADS);
   int stages = 0;
@@ -458,56 +629,73 @@ int launch_dw_k(const void* x, const void* table, const void* gr, void* part,
   if (bytes > conv_tile::SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   int rc = conv_tile::allow_smem<kernel>(bytes);
   if (rc) return rc;
-  // one wave: as many slices as the SMs hold blocks, within the capacity
-  // of the partials (slices) and one slice per tile
-  int per_sm = 1, sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int per_sm = 1;
+  const int sms = sm_count();
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, DW_THREADS,
                                                 bytes);
-  const int per_slice = p.n_kg * p.n_ci * (g.cout / p.NT);
-  const int n_tiles = (g.B * g.pad_out + DW_M - 1) / DW_M;
-  int S = (per_sm > 0 ? per_sm : 1) * sms / per_slice;
-  if (S > slices) S = slices;
-  if (S > n_tiles) S = n_tiles;
-  slices = S < 1 ? 1 : S;
-  dim3 grid(p.n_kg, slices, p.n_ci * (g.cout / p.NT));
-  kernel<<<grid, DW_THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(table),
-      static_cast<const __nv_bfloat16*>(gr), static_cast<float*>(part), g,
-      n_pad, p.G, p.CI, p.NT, stages);
+  if (per_sm > DW_BLOCKS_SM) per_sm = DW_BLOCKS_SM;
+  int target = DW_WAVES * (per_sm > 0 ? per_sm : 1) * sms / p.n_z - K;
+  const DwScratch sc(n_out, K, g.cin, g.cout, sms);
+  if (target < K) target = K;
+  if (target > sc.cap - K) target = sc.cap - K;
+  int* s = static_cast<int*>(a.scratch);
+  int2* pairs = reinterpret_cast<int2*>(s + sc.pairs);
+  match_table_kernel<<<dim3(sc.n_chunks, K), DW_THREADS, 0, stream>>>(
+      static_cast<const int*>(a.keys_in), static_cast<const int*>(a.keys_out),
+      s + sc.table, s + sc.counts, g, sc.n_pad);
+  match_table_kernel_scan<<<1, 1024, 0, stream>>>(
+      s + sc.counts, s + sc.meta, K, sc.n_chunks, target);
+  key_conv_dw_kernel_pairs<<<dim3(sc.n_chunks, K), DW_THREADS, 0, stream>>>(
+      s + sc.table, s + sc.counts, pairs, n_out, sc.n_pad);
+  if (!multiply) return static_cast<int>(cudaGetLastError());
+  float* part = reinterpret_cast<float*>(s + sc.table);
+  kernel<<<dim3(p.n_z, target + K), DW_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.x),
+      static_cast<const __nv_bfloat16*>(a.g), pairs, s + sc.meta, part, K,
+      g.cin, g.cout, sc.n_pad, p.CI, p.NT, stages);
+  const size_t per_k = (size_t)g.cin * g.cout, n = K * per_k;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  sum_slices_kernel_items<<<blocks, 256, 0, stream>>>(
+      part, static_cast<float*>(a.dw), s + sc.meta, K, per_k);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instantiation for the plan's unit shape (NB, CW) and units per warp
-template <int NB, int CW>
-int launch_dw_u(const void* x, const void* table, const void* gr, void* part,
-                const Geom& g, int n_pad, const DwPlan& p, int& slices,
-                cudaStream_t s) {
-  switch (p.UPW) {
-    case 1: return launch_dw_k<NB, CW, 1>(x, table, gr, part, g, n_pad, p, slices, s);
-    case 2: return launch_dw_k<NB, CW, 2>(x, table, gr, part, g, n_pad, p, slices, s);
-    case 3: return launch_dw_k<NB, CW, 3>(x, table, gr, part, g, n_pad, p, slices, s);
-    case 4: return launch_dw_k<NB, CW, 4>(x, table, gr, part, g, n_pad, p, slices, s);
-  }
-  if constexpr (NB * CW <= 512) {       // 32 x 32 units: at most 4
-    switch (p.UPW) {
-      case 5: return launch_dw_k<NB, CW, 5>(x, table, gr, part, g, n_pad, p, slices, s);
-      case 6: return launch_dw_k<NB, CW, 6>(x, table, gr, part, g, n_pad, p, slices, s);
-      case 7: return launch_dw_k<NB, CW, 7>(x, table, gr, part, g, n_pad, p, slices, s);
-      case 8: return launch_dw_k<NB, CW, 8>(x, table, gr, part, g, n_pad, p, slices, s);
-    }
+// the instantiation for the plan's unit shape (NB, CW) and units per warp:
+// 32 x 32 units take at most 2 a warp, 16-input units at most 4, 16-output
+// units (NT = 16) one
+int dw_dispatch(const DwArgs& a, bool multiply, cudaStream_t s) {
+  const DwPlan p(a.geo.cin, a.geo.cout);
+  if (p.NB == 32 && p.CW == 32) {
+    if (p.UPW == 1) return dw_run<32, 32, 1>(a, p, multiply, s);
+    if (p.UPW == 2) return dw_run<32, 32, 2>(a, p, multiply, s);
+  } else if (p.NB == 32) {
+    if (p.UPW == 1) return dw_run<32, 16, 1>(a, p, multiply, s);
+    if (p.UPW == 2) return dw_run<32, 16, 2>(a, p, multiply, s);
+    if (p.UPW == 3) return dw_run<32, 16, 3>(a, p, multiply, s);
+    if (p.UPW == 4) return dw_run<32, 16, 4>(a, p, multiply, s);
+  } else if (p.UPW == 1) {
+    if (p.CW == 32) return dw_run<16, 32, 1>(a, p, multiply, s);
+    return dw_run<16, 16, 1>(a, p, multiply, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int launch_dw(const void* x, const void* table, const void* gr, void* part,
-              const Geom& g, int n_pad, const DwPlan& p, int& slices,
-              cudaStream_t s) {
-  if (p.NB == 32 && p.CW == 32) return launch_dw_u<32, 32>(x, table, gr, part, g, n_pad, p, slices, s);
-  if (p.NB == 32) return launch_dw_u<32, 16>(x, table, gr, part, g, n_pad, p, slices, s);
-  if (p.CW == 32) return launch_dw_u<16, 32>(x, table, gr, part, g, n_pad, p, slices, s);
-  return launch_dw_u<16, 16>(x, table, gr, part, g, n_pad, p, slices, s);
+// The checks and the empty launch (no output rows: dw and meta zero) of
+// the two entry points below.
+int dw_entry(const DwArgs& a, bool multiply, cudaStream_t s) {
+  const Geom& g = a.geo;
+  const int K = g.ks * g.ks * g.ks;
+  if (K > DW_KMAX || g.cout % 16 || g.cin % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = (size_t)K * g.cin * g.cout;
+  if (g.B * g.pad_out > 0 && n > 0) return dw_dispatch(a, multiply, s);
+  const DwScratch sc(g.B * g.pad_out, K, g.cin, g.cout, sm_count());
+  int rc = static_cast<int>(cudaMemsetAsync(
+      static_cast<int*>(a.scratch) + sc.meta, 0,
+      (DW_META + 3 * (size_t)K) * sizeof(int), s));
+  if (!rc && multiply)
+    rc = static_cast<int>(cudaMemsetAsync(a.dw, 0, n * sizeof(float), s));
+  return rc ? rc : static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- stem dw
@@ -862,36 +1050,8 @@ int launch_stem_dw(const void* x, const void* keys, const void* g, void* part,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The matched input row (or -1) of every output row at every offset:
-// table[k * n_pad + v] = match(keys_out[v], k), -1 for v >= n_out. One
-// search per thread, all in flight at once, so the dw kernels read their
-// matches with one coalesced load per tile.
-__global__ void match_table_kernel(const int* __restrict__ keys_in,
-                                   const int* __restrict__ keys_out,
-                                   int* __restrict__ table, Geom g,
-                                   int n_pad) {
-  const int n_out = g.B * g.pad_out;
-  const size_t n = (size_t)g.ks * g.ks * g.ks * n_pad;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int k = (int)(i / n_pad), v = (int)(i % n_pad);
-    table[i] = v < n_out
-        ? match(g, keys_in, __ldg(keys_out + v), v / g.pad_out, k) : -1;
-  }
-}
-
-int match_table(const void* keys_in, const void* keys_out, void* table,
-                const Geom& g, int n_pad, cudaStream_t stream) {
-  const size_t n = (size_t)g.ks * g.ks * g.ks * n_pad;
-  const size_t blocks = (n + 255) / 256;
-  match_table_kernel<<<(int)(blocks < 132 * 64 ? blocks : 132 * 64), 256, 0,
-                       stream>>>(static_cast<const int*>(keys_in),
-                                 static_cast<const int*>(keys_out),
-                                 static_cast<int*>(table), g, n_pad);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Pass 2: out[i] = sum over the S slices of part[s][i], in slice order.
+// The stem dw's pass 2: out[i] = sum over the S slices of part[s][i], in
+// slice order.
 __global__ void sum_slices_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, size_t n, int S) {
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
@@ -908,8 +1068,6 @@ int sum_slices(const float* part, float* out, size_t n, int S,
   sum_slices_kernel<<<blocks, 256, 0, stream>>>(part, out, n, S);
   return static_cast<int>(cudaGetLastError());
 }
-
-int table_stride(int n_out) { return (n_out + DW_M - 1) / DW_M * DW_M; }
 
 }  // namespace
 
@@ -943,35 +1101,40 @@ int b2m_key_conv_stem(const void* x, const void* keys, const void* w,
                          static_cast<cudaStream_t>(stream));
 }
 
-// dw of the three key_conv modes (the same Geom as b2m_key_conv): x
-// (B*pad_in, cin) bf16, cin % 8 == 0; g (B*pad_out, cout) bf16; part (slices, ks^3, cin,
-// cout) f32 and table (ks^3, n_pad) i32 scratch, n_pad = B*pad_out rounded
-// up to 64; dw (ks^3, cin, cout) f32. cout % 16 == 0. The launch uses at
-// most `slices` row slices (as many as one wave of blocks holds).
-int b2m_key_conv_dw(const void* x, const void* keys_in, const void* keys_out,
-                    const void* g, void* part, void* dw, void* table, int B,
-                    int pad_in, int pad_out, int cin, int cout, int ks,
-                    int lo, int sign, int scale, int guard, int slices,
-                    void* stream) {
-  const Geom geo{B, pad_in, pad_out, cin, cout, ks, lo, sign, scale, guard};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (slices < 1 || cout % 16 || cin % 8)
+// The scratch of the dw below, on the current device: out[9] = {total
+// ints, the work items' cap, n_pad, n_chunks, and the offsets in ints of
+// the pairs, table, counts and meta} (csrc/dw_plan.cuh DwScratch).
+int b2m_key_conv_dw_scratch(int n_out, int ks, int cin, int cout,
+                            long long* out) {
+  if (ks < 1 || ks * ks * ks > DW_KMAX || n_out < 0 || cin < 1 || cout < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int K = ks * ks * ks;
-  const size_t n = (size_t)K * cin * cout;
-  int rc;
-  if (B * pad_out == 0 || n == 0) {
-    rc = static_cast<int>(cudaMemsetAsync(dw, 0, n * sizeof(float), s));
-    return rc ? rc : static_cast<int>(cudaGetLastError());
-  }
-  const int n_pad = table_stride(B * pad_out);
-  rc = match_table(keys_in, keys_out, table, geo, n_pad, s);
-  if (rc) return rc;
-  const DwPlan p(K, cin, cout);
-  rc = launch_dw(x, table, g, part, geo, n_pad, p, slices, s);
-  if (rc) return rc;
-  return sum_slices(static_cast<const float*>(part), static_cast<float*>(dw),
-                    n, slices, s);
+  DwScratch(n_out, ks * ks * ks, cin, cout, sm_count()).write(out);
+  return 0;
+}
+
+// dw of the three key_conv modes (the same Geom as b2m_key_conv): x
+// (B*pad_in, cin) bf16, cin % 8 == 0; g (B*pad_out, cout) bf16, cout % 16
+// == 0; dw (ks^3, cin, cout) f32; scratch of b2m_key_conv_dw_scratch's
+// total ints.
+int b2m_key_conv_dw(const void* x, const void* keys_in, const void* keys_out,
+                    const void* g, void* dw, void* scratch, int B, int pad_in,
+                    int pad_out, int cin, int cout, int ks, int lo, int sign,
+                    int scale, int guard, void* stream) {
+  const Geom geo{B, pad_in, pad_out, cin, cout, ks, lo, sign, scale, guard};
+  return dw_entry({x, keys_in, keys_out, g, dw, scratch, geo}, true,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The pair lists of that dw alone (passes 0-2), into the same scratch: per
+// offset k its (input row, output row) pairs from int2 k * n_pad, in
+// output-row order; meta as the multiply reads it.
+int b2m_key_conv_dw_pairs(const void* keys_in, const void* keys_out,
+                          void* scratch, int B, int pad_in, int pad_out,
+                          int cin, int cout, int ks, int lo, int sign,
+                          int scale, int guard, void* stream) {
+  const Geom geo{B, pad_in, pad_out, cin, cout, ks, lo, sign, scale, guard};
+  return dw_entry({nullptr, keys_in, keys_out, nullptr, nullptr, scratch, geo},
+                  false, static_cast<cudaStream_t>(stream));
 }
 
 // dw of the 5^3 stem: x (B*pad, 8) bf16, the cin <= 8 channels zero-padded

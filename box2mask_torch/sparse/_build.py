@@ -34,7 +34,9 @@ SIGNATURES = {
     'key_conv': {
         'b2m_key_conv': [_P] * 6 + [_I] * 11 + [_P],
         'b2m_key_conv_stem': [_P] * 5 + [_I] * 4 + [_P],
-        'b2m_key_conv_dw': [_P] * 7 + [_I] * 11 + [_P],
+        'b2m_key_conv_dw_scratch': [_I] * 4 + [_P],
+        'b2m_key_conv_dw': [_P] * 6 + [_I] * 10 + [_P],
+        'b2m_key_conv_dw_pairs': [_P] * 3 + [_I] * 10 + [_P],
         'b2m_key_conv_stem_dw': [_P] * 5 + [_I] * 6 + [_P],
     },
     'nmap_conv': {

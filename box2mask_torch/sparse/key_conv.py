@@ -32,9 +32,9 @@ w's.
 
 What bounds them on the H100, and what the design does about it, is in the
 header of csrc/key_conv.cu. The kernels search the key rows themselves (the
-dw kernel through a match table built on the card, the stem dw in-block),
-so the TPU's host window plans (kc*_base / kc*_cnt) do not exist in the
-port.
+dw through per-offset lists of matched (input row, output row) pairs built
+on the card, `key_conv_dw_pairs`; the stem dw in-block), so the TPU's host
+window plans (kc*_base / kc*_cnt) do not exist in the port.
 
 Rounding follows the JAX package: x and w round to bf16 on the f32 path too;
 the output dtype follows x (bf16 under --bf16_acts), except the stem, whose
@@ -42,7 +42,8 @@ output is always f32.
 
 A wrapper takes the plain twin only for CPU tensors; on a CUDA tensor it
 launches its kernel or raises. `LAUNCHES` counts kernel launches per mode and
-`PLAIN_CALLS` counts plain-twin calls, as plain integers.
+`PLAIN_CALLS` counts plain-twin calls, as plain integers; every `dw` launch
+builds its pair lists (the dw has no other path).
 """
 
 from __future__ import annotations
@@ -140,6 +141,20 @@ def key_conv_dw_plain(x, g, keys_in_b, keys_out, *, kernel_size=3,
     return torch.stack(dws)
 
 
+def dw_pairs_plain(keys_in_b, keys_out, *, kernel_size=3, stride_child=False,
+                   stride_parent=False, scale=1, guard=True):
+    """The dw's pair lists: per offset k an (n_k, 2) int64 tensor of the
+    matched (input row, output row) pairs, output rows ascending (misses,
+    guarded axis wraps and SENT rows enter none). Arguments as
+    key_conv_plain."""
+    lists = []
+    for hit, src in _matches(keys_in_b, keys_out, kernel_size, stride_child,
+                             stride_parent, scale, guard):
+        rows = hit.nonzero().squeeze(1)
+        lists.append(torch.stack([src[rows], rows], 1))
+    return lists
+
+
 # ----------------------------------------------------------------- kernels
 def _check_cuda(x, keys_in_b, keys_out, w):
     dev = x.device
@@ -208,26 +223,33 @@ def wpack_numel(K, cin, cout):
     return K * cout * n_ch * kc
 
 
-def table_stride(n_rows):
-    """Entries per offset of a dw match table: the rows rounded up to 64."""
-    return -(-n_rows // 64) * 64
+# pairs per dw tile, metadata ints before the per-offset triples
+# (csrc/dw_plan.cuh DW_M, DW_META)
+DW_M, DW_META = 64, 3
+# the fields of csrc/key_conv.cu b2m_key_conv_dw_scratch's out array
+DW_SCRATCH = ('total', 'cap', 'n_pad', 'n_chunks', 'pairs', 'table',
+              'counts', 'meta')
 
 
-def _dw_slices(n_rows, K, cin, cout):
-    """Capacity of a dw launch's partials in row-tile slices: one wave of
-    up to 4 blocks per SM of the H100's 132 (the kernel takes as many as
-    the SMs hold), the blocks per slice as csrc/key_conv.cu DwPlan splits
-    them: G offsets sharing each g tile, input chunks of CI, output chunks
-    of NT."""
-    ci = min(-(-cin // 16) * 16, 128)
-    nt = next(n for n in (128, 96, 64, 32, 16) if cout % n == 0)
-    nb, cw = (32 if nt % 32 == 0 else 16), (32 if ci % 32 == 0 else 16)
-    units = 8 * min(8, 4096 // (cw * nb))
-    G = max(1, min(K, units // (ci // cw * (nt // nb)),
-                   49152 // (128 * (ci + 8))))
-    per_slice = -(-K // G) * -(-cin // ci) * (cout // nt)
-    n_tiles = max(1, -(-n_rows // 64))
-    return max(1, min(n_tiles, 4 * 132 // per_slice))
+def dw_scratch(lib, n_rows, kernel_size, cin, cout):
+    """The scratch of a dw launch on the current device as
+    csrc/dw_plan.cuh DwScratch lays it out (the one layout): a dict of
+    DW_SCRATCH, sizes and offsets in ints."""
+    import ctypes
+    out = (ctypes.c_longlong * len(DW_SCRATCH))()
+    _launch(lib.b2m_key_conv_dw_scratch, n_rows, kernel_size, cin, cout,
+            ctypes.addressof(out))
+    return dict(zip(DW_SCRATCH, out))
+
+
+def dw_item_plan(counts, target):
+    """The dw's work items from the per-offset pair counts, as
+    csrc/key_conv.cu match_table_kernel_scan makes them: chunk (pairs per
+    item), items and first item per offset, numbered offset by offset."""
+    chunk = max(DW_M, -(-(-(-sum(counts) // target)) // DW_M) * DW_M)
+    items = [-(-n // chunk) for n in counts]
+    first = [sum(items[:k]) for k in range(len(items))]
+    return dict(chunk=chunk, target=target, items=items, first=first)
 
 
 def key_conv(x, keys_in_b, keys_out, w, *, kernel_size=3, stride_child=False,
@@ -341,21 +363,59 @@ def key_conv_dw(x, g, keys_in_b, keys_out, *, kernel_size=3,
     pad_out = keys_out.numel() // B
     xb, gb = pad_cin(_bf16(x))[0], _bf16(g)
     cin, cout = xb.shape[1], g.shape[1]
-    S = _dw_slices(B * pad_out, K, cin, cout)
     kin = keys_in_b.contiguous()
     kout = keys_out.reshape(-1).contiguous()
-    part = torch.empty(S, K, cin, cout, dtype=torch.float32, device=x.device)
     dw = torch.empty(K, cin, cout, dtype=torch.float32, device=x.device)
-    table = torch.empty(K, table_stride(B * pad_out), dtype=torch.int32,
-                        device=x.device)
     with _build.on(x.device):
+        lay = dw_scratch(lib, B * pad_out, ks, cin, cout)
+        scratch = torch.empty(lay['total'], dtype=torch.int32,
+                              device=x.device)
         stream = _build.stream(x.device)
         _launch(lib.b2m_key_conv_dw, xb.data_ptr(), kin.data_ptr(),
-                kout.data_ptr(), gb.data_ptr(), part.data_ptr(),
-                dw.data_ptr(), table.data_ptr(), B, pad_in, pad_out, cin,
-                cout, ks, lo, sign, scale, int(bool(guard)), S, stream)
+                kout.data_ptr(), gb.data_ptr(), dw.data_ptr(),
+                scratch.data_ptr(), B, pad_in, pad_out, cin, cout, ks, lo,
+                sign, scale, int(bool(guard)), stream)
     LAUNCHES['dw'] += 1
     return dw if cin == x.shape[1] else dw[:, :x.shape[1]].contiguous()
+
+
+def key_conv_dw_pairs(keys_in_b, keys_out, *, cin, cout, kernel_size=3,
+                      stride_child=False, stride_parent=False, scale=1,
+                      guard=True):
+    """The card's build of key_conv_dw's pair lists at input / output widths
+    cin / cout, as dw_pairs_plain gives them (int64 (n_k, 2) per offset),
+    and the work items its multiply runs (dw_item_plan's dict). It reads
+    the pair counts back: for tests and diagnostics, never the train step.
+    CUDA int32 keys only (the twin is dw_pairs_plain)."""
+    if keys_in_b.device.type != 'cuda':
+        raise ValueError(f'key_conv_dw_pairs: a build on the card, not on '
+                         f'{keys_in_b.device} (dw_pairs_plain is the twin)')
+    if keys_in_b.dtype != torch.int32 or keys_out.dtype != torch.int32:
+        raise TypeError('keys must be int32')
+    from box2mask_torch.sparse import _build
+    lib = _build.load('key_conv')
+    ks, lo, sign = _geometry(kernel_size, stride_child, stride_parent)
+    K = ks ** 3
+    cin += -cin % 8                            # pad_cin's width
+    B, pad_in = keys_in_b.shape
+    pad_out = keys_out.numel() // B
+    kin = keys_in_b.contiguous()
+    kout = keys_out.reshape(-1).contiguous()
+    with _build.on(keys_in_b.device):
+        lay = dw_scratch(lib, B * pad_out, ks, cin, cout)
+        scratch = torch.empty(lay['total'], dtype=torch.int32,
+                              device=keys_in_b.device)
+        stream = _build.stream(keys_in_b.device)
+        _launch(lib.b2m_key_conv_dw_pairs, kin.data_ptr(), kout.data_ptr(),
+                scratch.data_ptr(), B, pad_in, pad_out, cin, cout, ks, lo,
+                sign, scale, int(bool(guard)), stream)
+    meta = scratch[lay['meta']:lay['meta'] + DW_META + 3 * K].tolist()
+    counts, items, first = meta[DW_META::3], meta[DW_META + 1::3], \
+        meta[DW_META + 2::3]
+    pairs = scratch[lay['pairs']:lay['pairs'] + 2 * K * lay['n_pad']].view(
+        K, lay['n_pad'], 2)
+    return ([pairs[k, :n].long() for k, n in enumerate(counts)],
+            dict(chunk=meta[1], target=meta[2], items=items, first=first))
 
 
 def key_conv_stem_dw(x, g, keys_in_b):

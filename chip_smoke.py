@@ -568,7 +568,7 @@ def traced_ms(fn, reps):
     agg = {}
     for e in prof.events():
         if e.device_type.name == 'CUDA':
-            m = re.search(r'(\w+_kernel)', e.name)
+            m = re.search(r'(\w+_kernel\w*)', e.name)
             k = m.group(1) if m else e.name[:40]
             t, c = agg.get(k, (0.0, 0))
             agg[k] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
@@ -735,8 +735,13 @@ def dw_phase(dev, g):
             raise AssertionError(f'{name}: two launches differ')
         ms, plain_ms = time_ms(kern), time_ms(twin)
         n_hits = hits(kin, kout, **kw)
-        occ = occ_txt(n_hits, occupancy(kin, kout, DW_M, **kw))
-        if name in ('dw_same3_l0_96', 'stem_dw_6_32'):
+        split = {}
+        if mode == 'dw':
+            split = dw_pairs_split(kern, name, kin, kout, cin, cout, n_hits,
+                                   **kw)
+            occ = occ_txt(n_hits, split.pop('tile_rows'))
+        else:
+            occ = occ_txt(n_hits, occupancy(kin, kout, DW_M, **kw))
             dw_split(kern, name)
         n_in = int((kin < SENT_KEY).sum())
         n_kout = int((kout < SENT_KEY).sum())
@@ -750,13 +755,48 @@ def dw_phase(dev, g):
         bound_ms, bound_by = bound(nbytes, flops)
         row = dict(name=name, mode=mode, max_abs_err=err, tol=tol_txt, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   bytes=nbytes, flops=flops, hits=n_hits)
+                   bytes=nbytes, flops=flops, hits=n_hits, **split)
         log(f'[kernel] {name}: max_abs_err {err:.3e} (tol {tol_txt}) kernel '
             f'{ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound '
             f'{bound_ms:.4f} ms ({bound_by}; {nbytes} B, {flops:.3e} FLOP); '
             f'{occ}')
         rows.append(row)
     return rows
+
+
+def dw_pairs_split(fn, name, kin, kout, cin, cout, n_hits, reps=5, **kw):
+    """The dw's pair lists at this site, read back after a synchronise:
+    the pairs (equal to the twin's matched pairs), their share of the
+    (offset, output row) products, the rows the tensor cores multiply (the
+    items' 64-pair tiles); and the device ms of one launch split into the
+    pair-list build (match table, scan, compaction) and the multiply (the
+    product, the sum of the items' partials), traced_ms over `reps` calls."""
+    lists, plan = KC.key_conv_dw_pairs(kin, kout, cin=cin, cout=cout, **kw)
+    torch.cuda.synchronize()
+    counts = [len(p) for p in lists]
+    n_pairs, K = sum(counts), len(counts)
+    if n_pairs != n_hits:
+        raise AssertionError(f'{name}: {n_pairs} pairs in the lists, '
+                             f'{n_hits} matched')
+    chunk = plan['chunk']
+    tile_rows = sum(-(-min(chunk, n - c * chunk) // DW_M) * DW_M
+                    for n, i in zip(counts, plan['items']) for c in range(i))
+    agg = traced_ms(fn, reps)
+    build = sum(t for k, (t, _) in agg.items()
+                if k.startswith('match_table_kernel')
+                or k == 'key_conv_dw_kernel_pairs')
+    mult = sum(t for k, (t, _) in agg.items()
+               if k in ('key_conv_dw_kernel', 'sum_slices_kernel_items'))
+    out = dict(pairs=n_pairs, pair_share=n_pairs / (K * kout.numel()),
+               items=sum(plan['items']), chunk=chunk, build_ms=build,
+               multiply_ms=mult, tile_rows=tile_rows)
+    log(f'[dw_split] {name}: pairs {n_pairs} of {K} x {kout.numel()} '
+        f'(offset, output row) products = {out["pair_share"]:.4f}; '
+        f'{out["items"]} items of {chunk} pairs; device ms build '
+        f'{build:.4f}, multiply {mult:.4f}; by kernel (mean over the '
+        f'launches traced, of {reps} calls) ' + json.dumps(
+            {k: {'ms': t, 'traced': c} for k, (t, c) in agg.items()}))
+    return out
 
 
 def dw_split(fn, name, reps=5):

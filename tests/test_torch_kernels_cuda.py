@@ -83,18 +83,25 @@ def zrun_keys(rng, n, level):
 # rows), 'isolated' (lattice keys: one live offset per tile, fewer than the
 # ring's stages); for the stem dw, not in LAYOUTS: 'zruns' (zrun_keys) and
 # 'wide' (4096-row pads: the stem dw's searches leave shared memory for
-# device memory past 2048 keys in all)
+# device memory past 2048 keys in all); for the dw, not in LAYOUTS, pads
+# that dwarf the rows as at the deep levels: 'deep16k' (16384-row pads,
+# ~20% valid, as level 3) and 'deep4k' (4096-row pads, ~4% valid, as
+# level 5)
 LAYOUTS = ('border', 'pad200', 'sent_tiles', 'isolated')
+DEEP = {'deep16k': (16384, 3600), 'deep4k': (4096, 164)}
 
 
 def case(mode, level=0, cin=16, cout=32, seed=0, layout='border'):
     """(x, keys_in_b, keys_out_b, w, static kwargs) for one mode, B = 2."""
     rng = np.random.default_rng(seed)
     pad = {'pad200': 200, 'wide': 4096}.get(layout, PAD)
+    pad = DEEP.get(layout, (pad,))[0]
     kin, kout, xs = [], [], []
     for b in range(2):
         n_keys = {PAD: pad - 60 - 90 * b, 200: 150 - 40 * b}.get(
             pad, 3000 - 500 * b)
+        if layout in DEEP:
+            n_keys = DEEP[layout][1] * (4 - b) // 4
         if layout == 'sent_tiles' and b == 1:
             n_keys = 40
         fine = {'isolated': lattice_keys, 'zruns': zrun_keys}.get(
@@ -218,16 +225,26 @@ DW_WIDTHS = [('same', 0, 96, 96), ('same', 0, 128, 96), ('same', 2, 64, 64),
              ('same', 0, 160, 96)]
 
 
+# deep levels: level 3 on 16384-row pads (~20% valid), level 5 on 4096
+# (~4%), in the three modes and at the widths of those levels
+DW_DEEP = [('same', 3, 256, 256, 'deep16k'), ('same', 5, 256, 256, 'deep4k'),
+           ('same', 3, 96, 96, 'deep16k'), ('same', 5, 512, 256, 'deep4k'),
+           ('down', 3, 128, 128, 'deep16k'), ('up', 3, 256, 256, 'deep16k'),
+           ('up', 5, 256, 256, 'deep4k')]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('xdtype', ['f32', 'bf16'])
 @pytest.mark.parametrize('mode,level,cin,cout,layout', [
     w + ('border',) for w in DW_WIDTHS] + [
     (m, 0, ci, co, lay) for lay in LAYOUTS[1:] for m in ('same', 'down')
-    for ci, co in ((32, 32), (96, 96))])
+    for ci, co in ((32, 32), (96, 96))] + DW_DEEP)
 def test_dw_kernel_matches_plain_twin_on_card(cuda, mode, level, cin, cout,
                                               layout, xdtype):
     """dw is f32 from bf16-rounded x and g on both sides: 1e-5 of max |dw|
-    (f32 summation order); two launches bit-identical."""
+    (f32 summation order); two launches bit-identical. The deep layouts:
+    pads far over the rows, many items of a few pairs, pair counts off the
+    64-pair tile."""
     x, kin, kout, w, kw = case(mode, level, cin=cin, cout=cout, seed=level,
                                layout=layout)
     xt = torch.from_numpy(x).to(cuda)
@@ -246,6 +263,32 @@ def test_dw_kernel_matches_plain_twin_on_card(cuda, mode, level, cin, cout,
     assert_close(got.cpu().numpy(), want.cpu().numpy(), 'f32')
     again = KC.key_conv_dw(xt, g, kin_t, kout_t, **kw)
     assert torch.equal(got, again)                  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode,level,cin,cout,layout', [
+    ('same', 0, 96, 96, 'border'), ('same', 0, 16, 16, 'isolated'),
+    ('down', 0, 32, 32, 'pad200'), ('up', 0, 96, 96, 'sent_tiles')] + DW_DEEP)
+def test_dw_pair_lists_match_twin_on_card(cuda, mode, level, cin, cout,
+                                          layout):
+    """The pair lists the card builds for the dw equal the twin's, pair for
+    pair in output-row order, and its work items equal the Python mirror of
+    the plan at the target the card chose; a second build is the same."""
+    _, kin, kout, _, kw = case(mode, level, cin=cin, cout=cout, seed=level,
+                               layout=layout)
+    kin_t = torch.from_numpy(kin).to(cuda)
+    kout_t = torch.from_numpy(kout.reshape(-1)).to(cuda)
+    lists, plan = KC.key_conv_dw_pairs(kin_t, kout_t, cin=cin, cout=cout,
+                                       **kw)
+    want = KC.dw_pairs_plain(kin_t, kout_t, **kw)
+    assert len(lists) == len(want)
+    for got, ref in zip(lists, want):
+        assert torch.equal(got.cpu(), ref.cpu())
+    assert plan == KC.dw_item_plan([len(p) for p in want], plan['target'])
+    again, plan2 = KC.key_conv_dw_pairs(kin_t, kout_t, cin=cin, cout=cout,
+                                        **kw)
+    assert plan2 == plan and all(torch.equal(a, b)
+                                 for a, b in zip(again, lists))
 
 
 # the stem dw's edges: z-runs against the axis guard, tiles that straddle
